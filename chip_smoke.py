@@ -7,10 +7,16 @@ Phases (each prints one line; any failure exits non-zero):
   1. the card's name and power limit (nvidia-smi); build both hand-written
      kernels from csrc/ (one nvcc each, started together)
   2. launch the availability probe kernel (K2) and check it returns 1
+     and print K1's ptxas report, its shared bytes per block and the warps
+     one SM holds (the CUDA occupancy calculator)
   3. the fused step kernel (K1) against its plain PyTorch version at 4096
      lanes, k=32, on seeded random machines (hot register grids, memory and
      stack forms, page crossings, park causes, a breakpoint with bp_skip,
-     full overlays, the instruction budget): all 13 planes bit-identical
+     full overlays, the instruction budget): all 13 planes bit-identical;
+     then a ragged set: 1001 lanes (not a whole number of blocks) of 50
+     overlay rows (not a whole number of 32-row lookup rounds), with one
+     pfn in several rows, rows claimed up to count == slots, pfns found
+     only in the second lookup round, and non-free rows past `count`
   4. `run --name demo_tlv` on a crashing type-3 record, on the card and on
      --device cpu: the same crash name, rip and icount
   5. the main path: `campaign --name demo_tlv --fused-step on --lanes 4096
@@ -46,6 +52,9 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM (NVIDIA data sheet)
 SCALAR_OPS_PER_S = 67e12        # float32 outside the tensor cores (same)
 
 LANES = 4096                    # phases 3 and 5
+SLOTS = 128                     # overlay rows per lane (Runner's default)
+RAGGED_LANES = 1001             # phase 3's ragged set
+RAGGED_SLOTS = 50
 RUNS = 16384                    # testcases of the phase-5 campaign
 CAMPAIGN = ["campaign", "--name", "demo_tlv", "--fused-step", "on",
             "--lanes", str(LANES), "--runs", str(RUNS), "--limit", "20000",
@@ -152,9 +161,13 @@ def plane_diff(a, b) -> tuple:
 # phase 3: seeded random machines
 # ---------------------------------------------------------------------------
 
-def grid_state(n_lanes: int, seed: int, dev):
+def grid_state(n_lanes: int, seed: int, dev, slots: int = SLOTS,
+               ragged: bool = False):
     """(tab, image, machine, limit) of n_lanes random lanes of the grid
-    guest, every lane at a random instruction boundary."""
+    guest, every lane at a random instruction boundary.  `ragged` fills
+    the overlay row index the way the first set never does: counts up to
+    `slots`, a quarter of the lanes with their data pfns only past row
+    31, and a quarter with non-free rows past `count`."""
     import torch
 
     from wtf_tpu_torch.core.results import StatusCode
@@ -170,7 +183,7 @@ def grid_state(n_lanes: int, seed: int, dev):
     b.map(GRID_STACK_TOP - 0x8000, 0x9000)
     pages, cpu = b.build(rip=GRID_CODE_GVA, rsp=GRID_STACK_TOP - 0x1000)
     r = Runner(Snapshot.from_pages(pages, cpu), n_lanes=n_lanes,
-               device=dev)
+               overlay_slots=slots, device=dev)
     view = r.view()
     rips, off = [], 0
     while off < len(GRID_CODE):
@@ -218,14 +231,24 @@ def grid_state(n_lanes: int, seed: int, dev):
     slots = ov.capacity
     data_pfns = [view.translate(0, GRID_DATA_GVA + i * 0x1000) >> 12
                  for i in range(4)]
-    count = torch.where(rint(0, 10) == 0, slots, rint(0, 6))
+    if ragged:
+        count = pick([0, 3, slots - 2, slots - 1, slots]).where(
+            rint(0, 2) == 0, rint(0, slots + 1))
+    else:
+        count = torch.where(rint(0, 10) == 0, slots, rint(0, 6))
     rows = torch.arange(slots, device=dev)[None, :]
-    ov.pfn.copy_(torch.where(rows < count[:, None],
-                             pick(data_pfns + [7, 1 << 20], (n, slots)),
-                             -1).int())
+    pfns = pick(data_pfns + [7, 1 << 20], (n, slots))
+    used = rows < count[:, None]
+    if ragged:
+        # pfns no lookup asks for (past the image's frames, not PFN_OOB)
+        junk = (1 << 21) + rows.expand(n, slots)
+        deep = (rint(0, 4) == 0)[:, None] & (rows < 32)
+        pfns = torch.where(deep, junk, pfns)
+        used |= (rint(0, 4) == 0)[:, None]      # non-free rows past count
+    ov.pfn.copy_(torch.where(used, pfns, -1).int())
     ov.count.copy_(count.int())
     ov.valid.copy_((rint(0, 2, tuple(ov.valid.shape)) *
-                    (rows < count[:, None])[..., None]).to(torch.uint8))
+                    used[..., None]).to(torch.uint8))
     ov.data.copy_(rint(-2**63, 2**63 - 1, tuple(ov.data.shape)))
     return r.cache.device(dev), r.image, m, 1000
 
@@ -241,8 +264,11 @@ def kernel_record(name, source, replaces) -> dict:
             "bound_by": "bytes", "library_ms": None}
 
 
-def phase_build() -> str:
+def phase_build(record: dict) -> str:
+    import torch
+
     from wtf_tpu_torch.csrc import build
+    from wtf_tpu_torch.interp import pstep
 
     card = gpu_line()
     print(f"phase 1: card: {card}")
@@ -256,6 +282,16 @@ def phase_build() -> str:
           f"(nvcc per kernel: "
           f"{ {k: round(v, 2) for k, v in build.BUILD_SECONDS.items()} }); "
           f"ptxas: {json.dumps(regs)}")
+    grid, block, shared = pstep.launch_geometry(LANES, SLOTS)
+    warps = pstep.occupancy(LANES, SLOTS)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"phase 1: K1 at {LANES} lanes x {SLOTS} rows: {grid} blocks of "
+          f"{block} threads (one warp per lane), {shared} shared bytes per "
+          f"block; {warps} warps resident per SM (occupancy calculator), "
+          f"{warps * sms} on the card's {sms} SMs")
+    record["k1_geometry"] = {"grid": grid, "block": block,
+                             "shared_bytes": shared,
+                             "warps_per_sm": warps, "sms": sms}
     return card
 
 
@@ -281,26 +317,32 @@ def phase_random(dev, k1: dict) -> None:
     from wtf_tpu_torch.interp import pstep
     from wtf_tpu_torch.interp.machine import CTR_INSTR
 
-    t0 = time.perf_counter()
-    tab, img, m0, limit = grid_state(LANES, 3, dev)
-    mk, mp = m0.clone(), m0.clone()
-    pstep.fused_step(tab, img, mk, limit, 32)
-    torch.cuda.synchronize()
-    pstep.fused_step_plain(tab, img, mp, limit, 32)
-    torch.cuda.synchronize()
-    bad, err = plane_diff(mk, mp)
-    check(not bad, f"K1 differs from fused_step_plain in {bad} "
-                   f"(max abs err {err})")
-    st = mk.status.cpu().numpy()
-    ctr = (mk.ctr - m0.ctr).cpu().numpy().astype(np.int64)
-    counts = {int(k): int(v) for k, v in zip(*np.unique(
-        st, return_counts=True))}
-    print(f"phase 3: K1 == fused_step_plain on {LANES} random lanes, "
-          f"k=32, all planes bit-identical: retired "
-          f"{int(ctr[:, CTR_INSTR].sum())}, parks subset/mem "
-          f"{int(ctr[:, 4].sum())}/{int(ctr[:, 5].sum())}, statuses "
-          f"{counts} ({time.perf_counter() - t0:.1f} s)")
-    k1["max_abs_err"] = err
+    for n, slots, ragged in ((LANES, SLOTS, False),
+                             (RAGGED_LANES, RAGGED_SLOTS, True)):
+        t0 = time.perf_counter()
+        tab, img, m0, limit = grid_state(n, 3, dev, slots, ragged)
+        mk, mp = m0.clone(), m0.clone()
+        pstep.fused_step(tab, img, mk, limit, 32)
+        torch.cuda.synchronize()
+        pstep.fused_step_plain(tab, img, mp, limit, 32)
+        torch.cuda.synchronize()
+        bad, err = plane_diff(mk, mp)
+        check(not bad, f"K1 differs from fused_step_plain in {bad} on "
+                       f"{n} lanes x {slots} rows (max abs err {err})")
+        st = mk.status.cpu().numpy()
+        ctr = (mk.ctr - m0.ctr).cpu().numpy().astype(np.int64)
+        counts = {int(k): int(v) for k, v in zip(*np.unique(
+            st, return_counts=True))}
+        full = int((mk.overlay.count == slots).sum())
+        print(f"phase 3: K1 == fused_step_plain on {n} random lanes x "
+              f"{slots} overlay rows{' (ragged)' if ragged else ''}, k=32, "
+              f"all planes bit-identical: retired "
+              f"{int(ctr[:, CTR_INSTR].sum())}, parks subset/mem "
+              f"{int(ctr[:, 4].sum())}/{int(ctr[:, 5].sum())}, rows "
+              f"claimed {int((mk.overlay.count - m0.overlay.count).sum())}, "
+              f"lanes ending at count == slots {full}, statuses {counts} "
+              f"({time.perf_counter() - t0:.1f} s)")
+        k1["max_abs_err"] = max(k1["max_abs_err"] or 0, err)
 
 
 def phase_run() -> None:
@@ -520,7 +562,7 @@ def main(argv=None) -> int:
                        "wtf_tpu/interp/pstep.py:742")
     k2 = kernel_record("probe", "wtf_tpu_torch/csrc/probe.cu",
                        "wtf_tpu/interp/pstep.py:144")
-    card = phase_build()
+    card = phase_build(record)
     phase_probe(dev, k2)
     phase_random(dev, k1)
     phase_run()

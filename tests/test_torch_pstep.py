@@ -13,8 +13,14 @@ Between launches both sides run their resume leg (the precise step for
 parked lanes); a lane parked on an opclass this slice leaves to the
 oracle is checked to come out UNSUPPORTED and then takes the JAX state,
 as the oracle would give it.
+
+The wrapper's own logic is tested last: the kernel's launch geometry
+(one warp per lane, the row index in shared memory, the 227 KB limit)
+and the dispatch (CPU tensors run the plain version; inputs on two
+devices raise).
 """
 
+import dataclasses
 import random
 
 import jax.numpy as jnp
@@ -243,3 +249,134 @@ def test_fused_plain_timeout_in_kernel():
     """
     m, seen, _, _ = fused_lockstep(asm, limit=137)
     assert StatusCode.TIMEDOUT in seen and (m.icount == 137).all()
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_fused_plain_row_index_edges_match_kernel(seed):
+    """The row-index states the kernel's ragged card check covers: pfns in
+    rows past `count` (a lookup covers the whole capacity), one pfn in
+    several rows (the first wins), a full overlay and one a row short of
+    full.  One launch each side from the same state; every plane bit for
+    bit."""
+    asm = f"""
+        mov rbx, {DATA_BASE}
+        mov rcx, 3
+    1:
+        mov [rbx + 0x10], rcx
+        add rax, [rbx + 0x18]
+        mov [rbx + 0xffc], rax
+        push rax
+        pop rdx
+        dec rcx
+        jnz 1b
+        int3
+    """
+    pages, cpu = tp.build_guest(asm, data={DATA_BASE: bytes(0x2000)})
+    r = tp.warm_runner(pages, cpu, N_LANES, CAP, SLOTS)
+    view = r.view()
+    pfns = [view.translate(0, gva) >> 12 for gva in (
+        DATA_BASE, DATA_BASE + 0x1000, tp.STACK_TOP - 0x108)]
+    rng = np.random.default_rng(seed)
+    m = r.machine
+    ov = m.overlay
+    choices = np.array(pfns + [7, 1 << 20], dtype=np.int32)
+    rows = choices[rng.integers(0, len(choices), (N_LANES, SLOTS))]
+    count = np.array([2, SLOTS, SLOTS - 1, 0])
+    past = np.array([True, False, False, True])  # non-free rows past count
+    used = (np.arange(SLOTS)[None, :] < count[:, None]) | past[:, None]
+    ov.pfn.copy_(torch.from_numpy(np.where(used, rows, -1).astype(np.int32)))
+    ov.count.copy_(torch.from_numpy(count.astype(np.int32)))
+    ov.valid.copy_(torch.from_numpy(
+        (rng.integers(0, 2, tuple(ov.valid.shape)) * used[..., None])
+        .astype(np.uint8)))
+    ov.data.copy_(torch.from_numpy(rng.integers(
+        -2**63, 2**63 - 1, tuple(ov.data.shape), dtype=np.int64)))
+    tab = r.cache.device("cpu")
+    img_leaves = tp.padded_image(pages)
+    mj = make_run_fused(K, interpret=True)(
+        tp.jax_table(convert.table_to_jax(tab)), tp.jax_image(img_leaves),
+        tp.to_jax(m), jnp.uint64(0))
+    before = m.clone()
+    TP.fused_step_plain(tab, convert.image_from_jax(img_leaves), m, 0, K)
+    tp.assert_machines_equal(mj, m, where="one launch")
+    ctr = (m.ctr - before.ctr).numpy()
+    assert ctr[:, CTR_INSTR].sum() > 0
+    assert ctr[1, 5] == 1                   # the full lane parks on memory
+    assert int(m.overlay.count[2]) == SLOTS  # the last row claimed
+
+
+# ---------------------------------------------------------------------------
+# the wrapper: launch geometry and device dispatch
+# ---------------------------------------------------------------------------
+
+# the most rows whose per-warp row index fits one block's 227 KB of
+# shared memory (4-byte rows, padded to whole rounds of 32)
+_MAX_SLOTS = 232448 // (TP.WARPS * 32 * 4) * 32
+
+
+@pytest.mark.parametrize("n_lanes", (1, TP.WARPS - 1, 1000, 1001, 4096))
+@pytest.mark.parametrize("slots", (1, 31, 32, 50, 128, 1024, _MAX_SLOTS,
+                                   _MAX_SLOTS + 1))
+def test_launch_geometry(n_lanes, slots):
+    if slots > _MAX_SLOTS:
+        with pytest.raises(ValueError, match="shared memory"):
+            TP.launch_geometry(n_lanes, slots)
+        return
+    grid, block, shared = TP.launch_geometry(n_lanes, slots)
+    warps = block // 32
+    assert block == 32 * TP.WARPS                 # one warp per lane
+    assert (grid - 1) * warps < n_lanes <= grid * warps
+    rounds = -(-slots // 32)
+    assert shared == warps * rounds * 32 * 4      # every warp's row index
+    assert shared >= warps * slots * 4 and shared <= 232448
+
+
+def _small_state():
+    pages, cpu = tp.build_guest("""
+        mov rax, 1
+        mov rcx, 7
+    1:
+        add rax, rcx
+        push rax
+        pop rdx
+        dec rcx
+        jnz 1b
+        int3
+    """)
+    r = tp.warm_runner(pages, cpu, N_LANES, CAP, SLOTS)
+    return r.cache.device("cpu"), r.image, r.machine
+
+
+def test_fused_step_on_cpu_runs_the_plain_version(monkeypatch):
+    tab, img, m0 = _small_state()
+    want = m0.clone()
+    TP.fused_step_plain(tab, img, want, 0, K)
+    launches = dict(TP.LAUNCHES)
+
+    def no_launch(*args):
+        raise AssertionError("a CPU machine reached the kernel launch")
+
+    monkeypatch.setattr(TP, "_launch", no_launch)
+    got = m0.clone()
+    TP.fused_step(tab, img, got, 0, K)
+    assert TP.LAUNCHES == launches
+    for (name, a), (_, b) in zip(want.planes(), got.planes()):
+        assert torch.equal(a, b), name
+    assert int(got.ctr[:, CTR_INSTR].sum()) > 0
+
+
+@pytest.mark.parametrize("moved", ("hash_tab", "pages", "tenant"))
+def test_fused_step_raises_on_a_mixed_device(moved):
+    tab, img, m = _small_state()
+    before = m.clone()
+    if moved == "hash_tab":
+        tab = tab._replace(hash_tab=tab.hash_tab.to("meta"))
+    elif moved == "pages":
+        img = dataclasses.replace(img, pages=img.pages.to("meta"))
+    else:
+        img = dataclasses.replace(img, tenant=torch.zeros(
+            N_LANES, dtype=torch.int32, device="meta"))
+    with pytest.raises(ValueError, match=f"{moved} is on meta"):
+        TP.fused_step(tab, img, m, 0, K)
+    for (name, a), (_, b) in zip(before.planes(), m.planes()):
+        assert torch.equal(a, b), name

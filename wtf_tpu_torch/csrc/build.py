@@ -38,29 +38,36 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 PTXAS: Dict[str, str] = {}
 BUILD_SECONDS: Dict[str, float] = {}
 
-# C signatures: every pointer (and the stream) as c_void_p, ints as c_int
+# each library's C functions: every pointer (and the stream) as c_void_p,
+# ints as c_int
 _SIGNATURES = {
-    "probe": ("wtf_probe", [ctypes.c_void_p] * 3),
-    "fused_step": ("wtf_fused_step",
-                   [ctypes.c_void_p, ctypes.c_int,            # hash
-                    ctypes.c_void_p, ctypes.c_int,            # meta_i32
-                    ctypes.c_void_p,                          # meta_u64
-                    ctypes.c_void_p,                          # pages
-                    ctypes.c_void_p, ctypes.c_int,            # frame table
-                    ctypes.c_void_p, ctypes.c_void_p,         # tenant, cr3
-                    ctypes.c_void_p, ctypes.c_void_p,         # fs, gs
-                    ctypes.c_void_p, ctypes.c_void_p,         # gpr, rip
-                    ctypes.c_void_p, ctypes.c_void_p,         # rflags, status
-                    ctypes.c_void_p, ctypes.c_void_p,         # icount, bp_skip
-                    ctypes.c_void_p,                          # ctr
-                    ctypes.c_void_p, ctypes.c_int,            # cov
-                    ctypes.c_void_p, ctypes.c_int,            # edge
-                    ctypes.c_void_p, ctypes.c_void_p,         # ov pfn, data
-                    ctypes.c_void_p, ctypes.c_void_p,         # valid, count
-                    ctypes.c_int,                             # slots
-                    ctypes.c_int64,                           # limit
-                    ctypes.c_int, ctypes.c_int, ctypes.c_int,  # L, K, block
-                    ctypes.c_void_p]),                        # stream
+    "probe": [("wtf_probe", [ctypes.c_void_p] * 3)],
+    "fused_step": [
+        ("wtf_fused_step",
+         [ctypes.c_void_p, ctypes.c_int,            # hash
+          ctypes.c_void_p, ctypes.c_int,            # meta_i32
+          ctypes.c_void_p,                          # meta_u64
+          ctypes.c_void_p,                          # pages
+          ctypes.c_void_p, ctypes.c_int,            # frame table
+          ctypes.c_void_p, ctypes.c_void_p,         # tenant, cr3
+          ctypes.c_void_p, ctypes.c_void_p,         # fs, gs
+          ctypes.c_void_p, ctypes.c_void_p,         # gpr, rip
+          ctypes.c_void_p, ctypes.c_void_p,         # rflags, status
+          ctypes.c_void_p, ctypes.c_void_p,         # icount, bp_skip
+          ctypes.c_void_p,                          # ctr
+          ctypes.c_void_p, ctypes.c_int,            # cov
+          ctypes.c_void_p, ctypes.c_int,            # edge
+          ctypes.c_void_p, ctypes.c_void_p,         # ov pfn, data
+          ctypes.c_void_p, ctypes.c_void_p,         # valid, count
+          ctypes.c_int,                             # slots
+          ctypes.c_int64,                           # limit
+          ctypes.c_int, ctypes.c_int,               # L, K
+          ctypes.c_int, ctypes.c_int, ctypes.c_int,  # grid, block, shared
+          ctypes.c_void_p]),                        # stream
+        ("wtf_fused_occupancy",
+         [ctypes.c_int, ctypes.c_int,               # block, shared
+          ctypes.POINTER(ctypes.c_int)]),           # out: blocks per SM
+    ],
 }
 
 
@@ -158,9 +165,9 @@ def library(name: str) -> ctypes.CDLL:
     if lib is None:
         path = build_all((name,))[name]
         lib = ctypes.CDLL(str(path))
-        fn_name, argtypes = _SIGNATURES[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for fn_name, argtypes in _SIGNATURES[name]:
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _LIBS[name] = lib
     return lib

@@ -17,22 +17,49 @@
 // The Python plain version is wtf_tpu_torch/interp/pstep.py
 // fused_step_plain; chip_smoke.py holds the two bit-identical.
 //
-// Design.  One thread per lane, the K-step loop inside the thread, native
-// 64-bit arithmetic on the int64 planes (the TPU kernel's u32 limbs exist
-// only because Pallas on a TPU has no 64-bit integers).  The 13 state
-// planes are updated in place in the tensors the runner holds, which is
-// what the JAX kernel's input_output_aliases approximates; nothing is
-// copied through.  A lane stops at the first step that changes its status,
-// which is the same function as the JAX kernel's masked fori_loop.
+// Design.  One warp per lane: a block holds blockDim.x / 32 warps (the
+// wrapper's launch_geometry picks 4), and warp w of block b runs lane
+// b * warps + w; a warp past the last lane returns at once.  The lane's
+// scalar body (decode fields, addresses, execute, flags) is computed by
+// all 32 threads alike, so every branch is warp-uniform; each global
+// store is made by one thread, and __syncwarp() orders it before any
+// thread of the warp reads the word again.  Lanes share nothing
+// writable, so there are no atomics.  Thread i < 16 holds GPR i in a
+// register and reads move by __shfl_sync, so the register file needs no
+// local memory.  Native 64-bit arithmetic on the int64 planes (the TPU
+// kernel's u32 limbs exist only because Pallas on a TPU has no 64-bit
+// integers).  The 13 state planes are updated in place in the tensors
+// the runner holds, which is what the JAX kernel's input_output_aliases
+// approximates.  A lane stops at the first step that changes its
+// status, the same function as the JAX kernel's masked fori_loop.
 //
-// What bounds it.  Per step a lane touches a few hundred bytes: the hash
-// rows and the uop row, up to 6 walks x 4 page-table words, 9 window words
-// and up to 3 stored words, and for each of those words a linear scan of
-// its overlay row index (slots x 4 bytes).  The accesses are dependent
-// gathers from one thread per lane, so the kernel is latency-bound, far
-// from both the card's memory rate and its integer rate.  Block size and
-// occupancy are later work: at 4096 lanes with 128-thread blocks only 32
-// blocks exist for 132 SMs, so the launch uses 64-thread blocks.
+// The overlay row index.  Every word the lane reads goes through it
+// (the first row holding the word's pfn wins, over the WHOLE capacity,
+// as pstep.py's argmax).  The launch loads the lane's row index
+// (slots x 4 bytes) once, coalesced, into the warp's slice of dynamic
+// shared memory; a lookup is ceil(slots / 32) rounds of one shared load
+// per thread and a __ballot_sync, masked past `slots`.  A claimed row is
+// written to the slice and to ov_pfn by thread 0.  The helpers the warp
+// can share are split over its threads: the 8 decode probes (threads
+// 0-7, the lowest matching probe wins), the 3 words of a 16-byte window
+// (threads 0-2, then shuffled), the 3 words of a store's read-modify-
+// write (threads 0-2), and a claimed row's 512 validity bytes (one
+// 16-byte store per thread).  Two walks of one virtual page read the
+// same page-table words, so the walk of an access's last byte is taken
+// from its first byte's walk unless the access crosses a page, and a
+// memory destination's store walk reuses its load walk (nothing is
+// written between them).
+//
+// What bounds it.  Per step a lane touches a few hundred bytes (the
+// hash rows and the uop row, up to 6 walks x 4 page-table words, the
+// window words, up to 3 stored words), so the kernel is far from the
+// card's memory rate and its integer rate.  It is bound by the latency
+// of dependent loads: the hash row, then the uop row; the code window;
+// the walks, 4 dependent levels of a row lookup in shared memory and one
+// or two global loads each.  One warp per lane puts every SM to work at
+// 4096 lanes, and the warps resident on an SM (the registers a thread
+// uses set how many; PERF.md section 6) hide each other's latency.  What
+// is left is the chain of one lane's own loads, a walk's 4 levels first.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -57,6 +84,7 @@ typedef uint8_t u8;
 #define FLAG_SF 0x80ull
 #define FLAG_OF 0x800ull
 #define FLAGS_ARITH (FLAG_CF | FLAG_PF | FLAG_AF | FLAG_ZF | FLAG_SF | FLAG_OF)
+#define MAX_BLOCK 256  // threads per block the launcher accepts (8 warps)
 
 struct Args {
   const i32* hash_tab; int hash_size;
@@ -146,29 +174,39 @@ __device__ __forceinline__ bool eval_cond(u64 rf, u64 rcx, i64 cc) {
   }
 }
 
-// ---- register file -------------------------------------------------------
+// ---- warp helpers and the register file -----------------------------------
 
-__device__ __forceinline__ u64 read64(const u64* g, i64 idx) {
-  return (idx >= 0 && idx < 16) ? g[idx] : 0;
+#define FULL 0xFFFFFFFFu
+#define WARP 32
+
+__device__ __forceinline__ u64 shfl64(u64 v, int src) {
+  return (u64)__shfl_sync(FULL, (unsigned long long)v, src);
 }
-__device__ __forceinline__ u64 read_reg(const u64* g, i64 idx, i64 n) {
-  bool high = idx >= REG_AH_BASE;
-  i64 b = high ? idx - REG_AH_BASE : idx;
-  b = b < 0 ? 0 : (b > 15 ? 15 : b);
-  u64 v = g[b];
-  return high ? (v >> 8) & 0xFF : zext(v, n);
+// the register file: thread i < 16 holds GPR i in `greg`; every thread of
+// the warp calls these with the same arguments
+__device__ __forceinline__ u64 read64(u64 greg, i64 idx) {
+  const bool in = idx >= 0 && idx < 16;
+  const u64 v = shfl64(greg, in ? (int)idx : 0);
+  return in ? v : 0;
+}
+__device__ __forceinline__ int reg_base(i64 idx) {
+  const i64 b = idx >= REG_AH_BASE ? idx - REG_AH_BASE : idx;
+  return (int)(b < 0 ? 0 : (b > 15 ? 15 : b));
+}
+__device__ __forceinline__ u64 read_reg(u64 greg, i64 idx, i64 n) {
+  const u64 v = shfl64(greg, reg_base(idx));
+  return idx >= REG_AH_BASE ? (v >> 8) & 0xFF : zext(v, n);
 }
 // partial-register merge of cpu/emu.py write_reg: 32-bit writes
 // zero-extend, 8/16-bit writes merge, AH-view writes hit bits 15:8
-__device__ __forceinline__ void gpr_write(u64* g, i64 idx, u64 val, i64 n) {
-  bool high = idx >= REG_AH_BASE;
-  i64 b = high ? idx - REG_AH_BASE : idx;
-  b = b < 0 ? 0 : (b > 15 ? 15 : b);
-  u64 old = g[b], m = size_mask(n);
-  if (high) g[b] = (old & ~0xFF00ull) | ((val & 0xFF) << 8);
-  else if (n >= 8) g[b] = val;
-  else if (n == 4) g[b] = val & 0xFFFFFFFFull;
-  else g[b] = (old & ~m) | (val & m);
+__device__ __forceinline__ void gpr_write(u64* greg, int tid, i64 idx,
+                                          u64 val, i64 n) {
+  if (tid != reg_base(idx)) return;
+  const u64 old = *greg, m = size_mask(n);
+  if (idx >= REG_AH_BASE) *greg = (old & ~0xFF00ull) | ((val & 0xFF) << 8);
+  else if (n >= 8) *greg = val;
+  else if (n == 4) *greg = val & 0xFFFFFFFFull;
+  else *greg = (old & ~m) | (val & m);
 }
 
 // ---- the integer classes (mirroring step.alu/unary/shift/mul) --------------
@@ -335,16 +373,20 @@ __device__ void do_mul(i64 sub, i64 sext_f, u64 a, u64 b, u64 rax, u64 imm,
 struct Lane {
   const u64* pages;  // the shared image [image slots, PAGE_WORDS]
   int nframes;
-  const i32* pfns;   // [slots]
+  i32* sh_pfn;       // the lane's row index in the warp's shared slice
+  i32* pfns;         // the same row index in device memory [slots]
   u64* data;         // [slots, PAGE_WORDS]
   u8* valid;         // [slots, PAGE_WORDS]
   const i32* ftab;   // the lane's tenant row of the frame table
-  int slots;
+  int slots, rounds, tid;
 
-  // the FIRST row holding pfn (row 0 on a miss; unused then)
+  // the FIRST row holding pfn over the whole capacity (row 0 on a miss)
   __device__ int lookup(i32 pfn, bool* hit) const {
-    for (int s = 0; s < slots; ++s)
-      if (pfns[s] == pfn) { *hit = true; return s; }
+    for (int r = 0; r < rounds; ++r) {
+      const int s = r * WARP + tid;
+      const unsigned m = __ballot_sync(FULL, s < slots && sh_pfn[s] == pfn);
+      if (m) { *hit = true; return r * WARP + __ffs(m) - 1; }
+    }
     *hit = false;
     return 0;
   }
@@ -355,27 +397,38 @@ struct Lane {
     u64 p = addr >> 12;
     return p < (u64)nframes ? (i32)p : PFN_OOB;
   }
-  // one overlay-aware aligned word: the overlay word when the row is hit
-  // and its valid byte is set, else the image word
+  // one overlay-aware aligned word of a looked-up row: the overlay word
+  // when the row is hit and its valid byte is set, else the image word
+  // (the three independent loads issue together)
+  __device__ u64 fetch(i32 pfn, int row, bool hit, int widx) const {
+    const i64 at = (i64)row * PAGE_WORDS + widx;
+    const u8 v = valid[at];
+    const u64 d = data[at];
+    const i64 slot = slot_of(pfn);
+    return (hit && v) ? d : pages[slot * PAGE_WORDS + widx];
+  }
   __device__ u64 read_word(i32 pfn, int widx) const {
     bool hit;
-    int row = lookup(pfn, &hit);
-    if (hit && valid[(i64)row * PAGE_WORDS + widx])
-      return data[(i64)row * PAGE_WORDS + widx];
-    return pages[slot_of(pfn) * PAGE_WORDS + widx];
+    const int row = lookup(pfn, &hit);
+    return fetch(pfn, row, hit, widx);
   }
-  // 16 bytes at page offset off of frame pfn_a, straddling into pfn_b
+  // 16 bytes at page offset off of frame pfn_a, straddling into pfn_b:
+  // threads 0-2 read one word each, the warp shuffles them together
   __device__ void win16(i32 pfn_a, i32 pfn_b, u64 off, u64* lo, u64* hi) const {
-    int w0 = (int)(off >> 3);
-    u64 w[3];
-    for (int j = 0; j < 3; ++j) {
-      bool on_first = w0 + j < PAGE_WORDS;
-      w[j] = read_word(on_first ? pfn_a : pfn_b,
-                       on_first ? w0 + j : w0 + j - PAGE_WORDS);
-    }
-    u64 sh = (off & 7) * 8, inv = 64 - sh;
-    *lo = shr(w[0], sh) | shl(w[1], inv);
-    *hi = shr(w[1], sh) | shl(w[2], inv);
+    const int w0 = (int)(off >> 3);
+    bool hit_a, hit_b;
+    const int row_a = lookup(pfn_a, &hit_a);
+    int row_b = row_a;
+    hit_b = hit_a;
+    if (pfn_b != pfn_a) row_b = lookup(pfn_b, &hit_b);
+    const int j = tid < 3 ? tid : 2;
+    const bool on_first = w0 + j < PAGE_WORDS;
+    const u64 w = on_first ? fetch(pfn_a, row_a, hit_a, w0 + j)
+                           : fetch(pfn_b, row_b, hit_b, w0 + j - PAGE_WORDS);
+    const u64 w_0 = shfl64(w, 0), w_1 = shfl64(w, 1), w_2 = shfl64(w, 2);
+    const u64 sh = (off & 7) * 8, inv = 64 - sh;
+    *lo = shr(w_0, sh) | shl(w_1, inv);
+    *hi = shr(w_1, sh) | shl(w_2, inv);
   }
   __device__ u64 load8(u64 gpa0, u64 gpa1) const {
     u64 lo, hi;
@@ -389,6 +442,7 @@ struct Lane {
     bool writable = true, done = false;
     u64 gpa = 0, table = cr3 & PHYS_MASK;
     const int shifts[4] = {39, 30, 21, 12};
+#pragma unroll
     for (int lv = 0; lv < 4; ++lv) {
       int shift = shifts[lv];
       u64 addr = table + ((gva >> shift) & 0x1FF) * 8;
@@ -411,31 +465,66 @@ struct Lane {
     *w_out = writable;
     return gpa;
   }
+  // the walks of an access's first byte gva and last byte gva + last: on
+  // one virtual page both read the same entries and their gpas differ
+  // only in the page offset, so the second walk is taken from the first
+  __device__ void walk2(u64 cr3, u64 gva, u64 last, u64* g0, bool* ok0,
+                        bool* w0, u64* g1, bool* ok1, bool* w1) const {
+    const u64 gva1 = gva + last;
+    *g0 = walk(cr3, gva, ok0, w0);
+    if ((gva1 >> 12) == (gva >> 12)) {
+      *g1 = (*g0 & ~0xFFFull) | (gva1 & 0xFFF);
+      *ok1 = *ok0;
+      *w1 = *w0;
+    } else {
+      *g1 = walk(cr3, gva1, ok1, w1);
+    }
+  }
+  // claim row `row` for pfn: the row index (shared slice and device
+  // memory) by thread 0, the row's 512 validity bytes cleared by one
+  // 16-byte store per thread
+  __device__ void claim(int row, i32 pfn) const {
+    if (tid == 0) {
+      sh_pfn[row] = pfn;
+      pfns[row] = pfn;
+    }
+    reinterpret_cast<uint4*>(valid + (i64)row * PAGE_WORDS)[tid] =
+        make_uint4(0, 0, 0, 0);
+  }
 };
+
+static_assert(PAGE_WORDS == WARP * 16, "a row's validity is one 16-byte store per thread");
 
 // ---- the kernel --------------------------------------------------------------
 
-__global__ void __launch_bounds__(256) fused_step_kernel(Args args) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= args.n_lanes) return;
+__global__ void __launch_bounds__(MAX_BLOCK) fused_step_kernel(Args args) {
+  extern __shared__ i32 smem[];
+  const int tid = threadIdx.x & (WARP - 1);
+  const int warp = threadIdx.x / WARP;
+  const int lane = blockIdx.x * (blockDim.x / WARP) + warp;
+  if (lane >= args.n_lanes) return;  // the whole warp: lanes are per warp
   const Args& A = args;
   Lane L;
   L.pages = A.pages;
   L.nframes = A.nframes;
   L.slots = A.slots;
+  L.rounds = (A.slots + WARP - 1) / WARP;
+  L.tid = tid;
+  L.sh_pfn = smem + warp * L.rounds * WARP;
   L.pfns = A.ov_pfn + (i64)lane * A.slots;
   L.data = A.ov_data + (i64)lane * A.slots * PAGE_WORDS;
   L.valid = A.ov_valid + (i64)lane * A.slots * PAGE_WORDS;
+  for (int s = tid; s < L.rounds * WARP; s += WARP)
+    L.sh_pfn[s] = s < A.slots ? L.pfns[s] : -1;
+  __syncwarp();
   const i32 tenant = A.tenant[lane];
   L.ftab = A.frame_table + (i64)tenant * A.nframes;
-  i32* pfns_w = A.ov_pfn + (i64)lane * A.slots;
   const u64 cr3 = A.cr3[lane], fs = A.fs[lane], gs = A.gs[lane];
   const u64 ttag = (u64)(u32)tenant << 48;
   const int hmask = A.hash_size - 1;
   const int ebits = A.edge_words * 32;
 
-  u64 g[16];
-  for (int i = 0; i < 16; ++i) g[i] = A.gpr[(i64)lane * 16 + i];
+  u64 greg = tid < 16 ? A.gpr[(i64)lane * 16 + tid] : 0;
   u64 rip = A.rip[lane], rf = A.rflags[lane], ic = A.icount[lane];
   i32 status = A.status[lane], bpskip = A.bp_skip[lane];
   i32 count = A.ov_count[lane];
@@ -444,18 +533,20 @@ __global__ void __launch_bounds__(256) fused_step_kernel(Args args) {
   u32 d_instr = 0, d_miss = 0, d_ps = 0, d_pm = 0;
 
   for (int step = 0; step < A.k_steps && status == ST_RUNNING; ++step) {
-    // 1. decode-cache probe
+    // 1. decode-cache probe: thread k < PROBES takes probe k, the lowest
+    // live match wins
     const u64 key = rip ^ ttag;
     const u32 h_lo = (u32)splitmix64(key);
-    int idx = -1;
-    for (int k = 0; k < PROBES; ++k) {
-      const i32* row = A.hash_tab + (i64)((h_lo + (u32)k) & (u32)hmask) * 3;
-      if (row[0] >= 0 && (u32)row[1] == (u32)key && (u32)row[2] == (u32)(key >> 32)) {
-        idx = row[0];
-        break;
-      }
+    bool match = false;
+    i32 cand = -1;
+    if (tid < PROBES) {
+      const i32* row = A.hash_tab + (i64)((h_lo + (u32)tid) & (u32)hmask) * 3;
+      cand = row[0];
+      match = cand >= 0 && (u32)row[1] == (u32)key && (u32)row[2] == (u32)(key >> 32);
     }
-    if (idx < 0) { status = ST_NEED_DECODE; ++d_miss; break; }
+    const unsigned pm = __ballot_sync(FULL, match);
+    if (!pm) { status = ST_NEED_DECODE; ++d_miss; break; }
+    const int idx = __shfl_sync(FULL, cand, __ffs(pm) - 1);
     const i32* f = A.meta_i32 + (i64)idx * A.meta_cols;
     const u64* mu = A.meta_u64 + (i64)idx * 4;
     const i64 opc = f[F_OPC], sub = f[F_SUB], cond = f[F_COND];
@@ -496,15 +587,16 @@ __global__ void __launch_bounds__(256) fused_step_kernel(Args args) {
     // 4. addresses
     const u64 next_rip = rip + (u64)length;
     const i64 breg = f[F_BASE_REG];
-    const u64 base_val = breg == REG_RIP ? next_rip : read64(g, breg);
+    const u64 breg_val = read64(greg, breg);
+    const u64 base_val = breg == REG_RIP ? next_rip : breg_val;
     const i64 scale = f[F_SCALE];
-    const u64 iv = read64(g, f[F_IDX_REG]);
+    const u64 iv = read64(greg, f[F_IDX_REG]);
     const u64 idx_val = scale == 0 ? 0 : iv << (scale == 2 ? 1 : scale == 4 ? 2 : scale == 8 ? 3 : 0);
     const u64 seg = f[F_SEG] == SEG_FS ? fs : (f[F_SEG] == SEG_GS ? gs : 0);
     u64 flat = disp + base_val + idx_val;
     if (f[F_A32] != 0) flat &= 0xFFFFFFFFull;
     const u64 ea = flat + seg;
-    const u64 rsp = g[4];
+    const u64 rsp = shfl64(greg, 4), rcx = shfl64(greg, 1);
     const i64 push_size = is_call ? 8 : opsize;
 
     // 4a/4c. operand walks and loads (only where their values are used)
@@ -513,27 +605,30 @@ __global__ void __launch_bounds__(256) fused_step_kernel(Args args) {
     if (sk == K_MEM || is_pop || is_ret) {
       const u64 addr = (is_pop || is_ret) ? rsp : ea;
       const i64 size = is_ret ? 8 : (is_pop ? opsize : srcsize);
-      bool ok0, ok1, w;
-      const u64 g0 = L.walk(cr3, addr, &ok0, &w);
-      const u64 g1 = L.walk(cr3, addr + (u64)(size - 1), &ok1, &w);
+      u64 g0, g1;
+      bool ok0, ok1, w0, w1;
+      L.walk2(cr3, addr, (u64)(size - 1), &g0, &ok0, &w0, &g1, &ok1, &w1);
       park_mem |= !(ok0 && ok1);
       l1 = L.load8(g0, g1);
     }
+    // the destination's walks, kept for its store (same addresses)
+    u64 dg0 = 0, dg1 = 0;
+    bool dok0 = false, dok1 = false, dw0 = false, dw1 = false;
     if (dk == K_MEM) {
-      bool ok0, ok1, w;
-      const u64 g0 = L.walk(cr3, ea, &ok0, &w);
-      const u64 g1 = L.walk(cr3, ea + (u64)(opsize - 1), &ok1, &w);
-      if (is_alu || is_shift || is_unary) park_mem |= !(ok0 && ok1);
-      l2 = L.load8(g0, g1);
+      L.walk2(cr3, ea, (u64)(opsize - 1), &dg0, &dok0, &dw0, &dg1, &dok1, &dw1);
+      if (is_alu || is_shift || is_unary) park_mem |= !(dok0 && dok1);
+      l2 = L.load8(dg0, dg1);
     }
 
     // 5. execute
-    const u64 src_raw = sk == K_REG ? read_reg(g, sr, srcsize)
+    const u64 src_reg = read_reg(greg, sr, srcsize);
+    const u64 src_raw = sk == K_REG ? src_reg
                         : (sk == K_MEM ? zext(l1, srcsize) : 0);
     const u64 src_ext = sext_f == 1 ? zext(sext(src_raw, srcsize), opsize)
                                     : zext(src_raw, opsize);
     const u64 src_val = sk == K_IMM ? zext(imm, opsize) : src_ext;
-    const u64 dst_val = dk == K_REG ? read_reg(g, dr, opsize)
+    const u64 dst_reg = read_reg(greg, dr, opsize);
+    const u64 dst_val = dk == K_REG ? dst_reg
                         : (dk == K_MEM ? zext(l2, opsize) : 0);
     const bool cf_in = rf & FLAG_CF;
     u64 r = 0, new_rf = rf, w2v = 0;
@@ -541,12 +636,12 @@ __global__ void __launch_bounds__(256) fused_step_kernel(Args args) {
     if (is_alu) do_alu(sub, dst_val, src_val, cf_in, opsize, rf, &r, &new_rf, &writes);
     else if (is_unary) do_unary(sub, dst_val, cf_in, opsize, rf, &r, &new_rf);
     else if (is_shift)
-      do_shift(sub, sext_f, dst_val, read_reg(g, sr, opsize), g[1], src_val,
+      do_shift(sub, sext_f, dst_val, read_reg(greg, sr, opsize), rcx, src_val,
                imm, cf_in, opsize, rf, &r, &new_rf, &writes);
     else if (is_mul)
-      do_mul(sub, sext_f, dst_val, src_val, read_reg(g, 0, opsize), imm,
+      do_mul(sub, sext_f, dst_val, src_val, read_reg(greg, 0, opsize), imm,
              opsize, rf, &r, &w2v, &new_rf);
-    const bool cc = eval_cond(rf, g[1], cond);
+    const bool cc = eval_cond(rf, rcx, cond);
     const u64 jcc_t = next_rip + imm;
     const u64 pop_val = zext(l1, opsize);
 
@@ -554,15 +649,20 @@ __global__ void __launch_bounds__(256) fused_step_kernel(Args args) {
     const bool mem_writes = is_mov || (is_alu && writes) ||
         (is_shift && writes) || is_unary || is_setcc || is_pop;
     const bool st_need = (dk == K_MEM && mem_writes) || is_push || is_call;
-    const u64 st_addr = (is_push || is_call) ? rsp - (u64)push_size : ea;
     u64 stg0 = 0, s_off = 0;
     i32 s_pfn0 = 0, s_pfn1 = 0;
     bool crosses = false, hit0 = false, hit1 = false, st_alias = false;
     int row0 = 0, row1 = 0;
     if (st_need) {
+      u64 stg1;
       bool ok0, ok1, w0, w1;
-      stg0 = L.walk(cr3, st_addr, &ok0, &w0);
-      const u64 stg1 = L.walk(cr3, st_addr + (u64)(push_size - 1), &ok1, &w1);
+      if (is_push || is_call) {
+        L.walk2(cr3, rsp - (u64)push_size, (u64)(push_size - 1), &stg0, &ok0,
+                &w0, &stg1, &ok1, &w1);
+      } else {  // a memory destination: its walks from 4c
+        stg0 = dg0; ok0 = dok0; w0 = dw0;
+        stg1 = dg1; ok1 = dok1; w1 = dw1;
+      }
       s_off = stg0 & 0xFFF;
       crosses = s_off + (u64)push_size > 4096;
       s_pfn0 = L.pfn_of(stg0);
@@ -586,33 +686,29 @@ __global__ void __launch_bounds__(256) fused_step_kernel(Args args) {
     else if (is_ret) rip_exec = l1;
 
     // 5b. store: claim rows (clearing validity), then the <= 8-byte masked
-    // read-modify-write over three words
+    // read-modify-write over three words, one word per thread 0-2 (the
+    // three (row, word) pairs are distinct)
     if (st_need) {
       const bool alloc0 = !hit0;
       const int rowa = alloc0 ? count : row0;
-      if (alloc0) {
-        pfns_w[rowa] = s_pfn0;
-        for (int w = 0; w < PAGE_WORDS; ++w) L.valid[(i64)rowa * PAGE_WORDS + w] = 0;
-      }
+      if (alloc0) L.claim(rowa, s_pfn0);
       const int cnt1 = count + (alloc0 ? 1 : 0);
       const bool alloc1 = crosses && !hit1 && !st_alias;
       const int rowb = alloc1 ? cnt1 : ((crosses && hit1) ? row1 : rowa);
-      if (alloc1) {
-        pfns_w[rowb] = s_pfn1;
-        for (int w = 0; w < PAGE_WORDS; ++w) L.valid[(i64)rowb * PAGE_WORDS + w] = 0;
-      }
+      if (alloc1) L.claim(rowb, s_pfn1);
       count = cnt1 + (alloc1 ? 1 : 0);
+      __syncwarp();  // the claimed rows, before threads 0-2 read them
       u64 st_val = 0;
       if (is_mov || is_push) st_val = src_val;
       else if (is_alu || is_shift || is_unary) st_val = r;
       else if (is_setcc) st_val = cc ? 1 : 0;
       else if (is_pop) st_val = pop_val;
       else if (is_call) st_val = next_rip;
-      const u64 sh = (s_off & 7) * 8;
-      const u64 end_bit = sh + (u64)push_size * 8;
-      const u64 v[3] = {shl(st_val, sh), shr(st_val, 64 - sh), 0};
-      const int w0i = (int)(s_off >> 3);
-      for (int j = 0; j < 3; ++j) {
+      if (tid < 3) {
+        const int j = tid;
+        const u64 sh = (s_off & 7) * 8;
+        const u64 end_bit = sh + (u64)push_size * 8;
+        const u64 vj = j == 0 ? shl(st_val, sh) : (j == 1 ? shr(st_val, 64 - sh) : 0);
         const u64 lo_bit = 64 * j;
         const u64 start_in = sh > lo_bit ? sh : lo_bit;
         const u64 end_in = end_bit < lo_bit + 64 ? end_bit : lo_bit + 64;
@@ -621,6 +717,7 @@ __global__ void __launch_bounds__(256) fused_step_kernel(Args args) {
         const u64 off_in = has ? start_in - lo_bit : 0;
         // n_bits == 64 wraps (1 << 64 -> 0) to the all-ones mask
         const u64 mask = shl(shl(1, n_bits) - 1, off_in);
+        const int w0i = (int)(s_off >> 3);
         const bool on_first = w0i + j < PAGE_WORDS;
         const int widx = on_first ? w0i + j : w0i + j - PAGE_WORDS;
         const int row = on_first ? rowa : rowb;
@@ -628,17 +725,18 @@ __global__ void __launch_bounds__(256) fused_step_kernel(Args args) {
         const u8 vbyte = L.valid[at];
         const u64 old = vbyte ? L.data[at]
             : A.pages[L.slot_of(on_first ? s_pfn0 : s_pfn1) * PAGE_WORDS + widx];
-        L.data[at] = (old & ~mask) | (v[j] & mask);
+        L.data[at] = (old & ~mask) | (vj & mask);
         if (mask) L.valid[at] = vbyte | 1;
       }
+      __syncwarp();  // the stored words, before any thread reads them
     }
 
     // 5c. register writes in the precise step's order: rsp, aux, primary
-    if (is_push || is_call) gpr_write(g, 4, rsp - (u64)push_size, 8);
-    else if (is_pop) gpr_write(g, 4, rsp + (u64)opsize, 8);
-    else if (is_ret) gpr_write(g, 4, rsp + 8 + imm, 8);
+    if (is_push || is_call) gpr_write(&greg, tid, 4, rsp - (u64)push_size, 8);
+    else if (is_pop) gpr_write(&greg, tid, 4, rsp + (u64)opsize, 8);
+    else if (is_ret) gpr_write(&greg, tid, 4, rsp + 8 + imm, 8);
     const bool is_mul2 = sub == MUL_2OP;
-    if (is_mul && !is_mul2 && opsize > 1) gpr_write(g, 2, w2v, opsize);
+    if (is_mul && !is_mul2 && opsize > 1) gpr_write(&greg, tid, 2, w2v, opsize);
     const bool dk_reg = dk == K_REG;
     bool w1_cond = false;
     u64 w1_val = 0;
@@ -654,7 +752,7 @@ __global__ void __launch_bounds__(256) fused_step_kernel(Args args) {
       const i64 w1_idx = is_mul ? (is_mul2 ? dr : 0) : dr;
       const i64 w1_size = is_mul ? (is_mul2 ? opsize : (opsize == 1 ? 2 : opsize))
                                  : opsize;
-      gpr_write(g, w1_idx, w1_val, w1_size);
+      gpr_write(&greg, tid, w1_idx, w1_val, w1_size);
     }
 
     // 5d. rflags (bits 32+ pass through) / rip
@@ -663,31 +761,49 @@ __global__ void __launch_bounds__(256) fused_step_kernel(Args args) {
     const u64 prev_rip = rip;
     rip = rip_exec;
 
-    // 6. bookkeeping: icount/limit, counters, coverage, edges
+    // 6. bookkeeping: icount/limit, counters, coverage, edges (thread 0
+    // alone reads and writes the bitmaps)
     ++ic;
     ++d_instr;
     bpskip = 0;
-    cov[idx >> 5] |= 1u << (idx & 31);
-    if (is_jmp || is_jcc || is_call || is_ret) {
-      const u32 ei = ((u32)mix64(prev_rip) ^ (u32)rip_exec) & (u32)(ebits - 1);
-      edge[ei >> 5] |= 1u << (ei & 31);
+    if (tid == 0) {
+      cov[idx >> 5] |= 1u << (idx & 31);
+      if (is_jmp || is_jcc || is_call || is_ret) {
+        const u32 ei = ((u32)mix64(prev_rip) ^ (u32)rip_exec) & (u32)(ebits - 1);
+        edge[ei >> 5] |= 1u << (ei & 31);
+      }
     }
     if (A.limit != 0 && !(ic < A.limit)) { status = ST_TIMEDOUT; break; }
   }
 
-  for (int i = 0; i < 16; ++i) A.gpr[(i64)lane * 16 + i] = g[i];
-  A.rip[lane] = rip;
-  A.rflags[lane] = rf;
-  A.icount[lane] = ic;
-  A.status[lane] = status;
-  A.bp_skip[lane] = bpskip;
-  A.ov_count[lane] = count;
-  u32* c = A.ctr + (i64)lane * N_CTRS;
-  c[CTR_INSTR] += d_instr;
-  c[CTR_DECODE_MISS] += d_miss;
-  c[CTR_FUSED] += d_instr;  // every kernel-retired instruction is fused
-  c[CTR_PARK_SUBSET] += d_ps;
-  c[CTR_PARK_MEM] += d_pm;
+  if (tid < 16) A.gpr[(i64)lane * 16 + tid] = greg;
+  if (tid == 0) {
+    A.rip[lane] = rip;
+    A.rflags[lane] = rf;
+    A.icount[lane] = ic;
+    A.status[lane] = status;
+    A.bp_skip[lane] = bpskip;
+    A.ov_count[lane] = count;
+    u32* c = A.ctr + (i64)lane * N_CTRS;
+    c[CTR_INSTR] += d_instr;
+    c[CTR_DECODE_MISS] += d_miss;
+    c[CTR_FUSED] += d_instr;  // every kernel-retired instruction is fused
+    c[CTR_PARK_SUBSET] += d_ps;
+    c[CTR_PARK_MEM] += d_pm;
+  }
+}
+
+// the dynamic shared memory one block needs: each warp's slice of the row
+// index, padded to whole rounds of 32 (interp/pstep.py launch_geometry
+// computes the same)
+static int smem_needed(int block, int slots) {
+  return block / WARP * ((slots + WARP - 1) / WARP) * WARP * (int)sizeof(i32);
+}
+
+static int set_smem(int smem_bytes) {
+  if (smem_bytes <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      fused_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
 }
 
 extern "C" int wtf_fused_step(
@@ -698,7 +814,7 @@ extern "C" int wtf_fused_step(
     void* icount, void* bp_skip, void* ctr, void* cov, int cov_words,
     void* edge, int edge_words, void* ov_pfn, void* ov_data, void* ov_valid,
     void* ov_count, int slots, int64_t limit, int n_lanes, int k_steps,
-    int block, void* stream) {
+    int grid, int block, int smem_bytes, void* stream) {
   Args a;
   a.hash_tab = (const i32*)hash_tab; a.hash_size = hash_size;
   a.meta_i32 = (const i32*)meta_i32; a.meta_cols = meta_cols;
@@ -714,8 +830,20 @@ extern "C" int wtf_fused_step(
   a.ov_count = (i32*)ov_count; a.slots = slots;
   a.limit = (u64)limit; a.n_lanes = n_lanes; a.k_steps = k_steps;
   if (n_lanes <= 0) return 0;
-  if (block <= 0 || block > 256) return (int)cudaErrorInvalidValue;
-  const int grid = (n_lanes + block - 1) / block;
-  fused_step_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(a);
+  if (slots <= 0 || block <= 0 || block > MAX_BLOCK || block % WARP != 0 ||
+      (i64)grid * (block / WARP) < n_lanes || smem_bytes < smem_needed(block, slots))
+    return (int)cudaErrorInvalidValue;
+  const int err = set_smem(smem_bytes);
+  if (err) return err;
+  fused_step_kernel<<<grid, block, smem_bytes, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// blocks of `block` threads with smem_bytes of dynamic shared memory that
+// one SM holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
+extern "C" int wtf_fused_occupancy(int block, int smem_bytes, int* blocks) {
+  const int err = set_smem(smem_bytes);
+  if (err) return err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, fused_step_kernel, block, smem_bytes);
 }

@@ -59,9 +59,11 @@ _TIMEDOUT = int(StatusCode.TIMEDOUT)
 # launches (chip_smoke.py zeroes these before driving the main path)
 LAUNCHES = {"fused_step": 0, "probe": 0}
 
-# threads per block for the fused kernel (one thread per lane; 64 keeps
-# 4096 lanes on 64 of the card's 132 SMs — tuning is later work)
-BLOCK = 64
+# the fused kernel runs one warp per lane, WARPS lanes per block
+WARP = 32
+WARPS = 4
+# dynamic shared memory one block may use on Hopper (227 KB)
+MAX_SHARED = 232448
 
 
 # ---------------------------------------------------------------------------
@@ -114,10 +116,53 @@ def fused_available(device="cuda"):
 # the fused step
 # ---------------------------------------------------------------------------
 
+def launch_geometry(n_lanes: int, slots: int) -> tuple:
+    """(grid, block, dynamic shared bytes) of a fused-kernel launch over
+    n_lanes lanes of `slots` overlay rows: one warp per lane, WARPS warps
+    per block (the last block's spare warps return at once), and in
+    shared memory each warp's copy of its lane's row index, padded to
+    whole rounds of 32 rows (the lookup masks the rows past `slots`)."""
+    if n_lanes < 0 or slots < 1:
+        raise ValueError(f"fused_step: {n_lanes} lanes of {slots} overlay "
+                         f"rows")
+    rounds = -(-slots // WARP)
+    shared = WARPS * rounds * WARP * 4
+    if shared > MAX_SHARED:
+        raise ValueError(
+            f"fused_step: {slots} overlay rows need {shared} bytes of "
+            f"shared memory per block, over the card's {MAX_SHARED}")
+    return -(-n_lanes // WARPS), WARPS * WARP, shared
+
+
+def occupancy(n_lanes: int, slots: int) -> int:
+    """Warps of the fused kernel one SM holds at once at the geometry of
+    launch_geometry(n_lanes, slots), from the CUDA occupancy calculator
+    (needs the card and the built library)."""
+    from wtf_tpu_torch.csrc.build import library
+
+    _, block, shared = launch_geometry(n_lanes, slots)
+    blocks = ctypes.c_int(0)
+    err = library("fused_step").wtf_fused_occupancy(block, shared,
+                                                    ctypes.byref(blocks))
+    if err:
+        raise RuntimeError(f"fused_step occupancy query failed: cuda error "
+                           f"{err}")
+    return blocks.value * block // WARP
+
+
 def fused_step(tab: UopTable, image: MemImage, m: Machine, limit: int,
                k_steps: int) -> None:
     """Up to k_steps hot instructions per lane, in place.  CUDA tensors
-    launch the kernel; CPU tensors run the plain version."""
+    launch the kernel; CPU tensors run the plain version.  Every input
+    must lie on the machine's device."""
+    image = lane_image(image, m.n_lanes)
+    for name, t in (("hash_tab", tab.hash_tab), ("meta_i32", tab.meta_i32),
+                    ("meta_u64", tab.meta_u64), ("pages", image.pages),
+                    ("frame_table", image.frame_table),
+                    ("tenant", image.tenant)):
+        if t.device != m.device:
+            raise ValueError(f"fused_step: {name} is on {t.device}, the "
+                             f"machine on {m.device}")
     if m.device.type == "cuda":
         _launch(tab, image, m, limit, k_steps)
     elif m.device.type == "cpu":
@@ -175,6 +220,11 @@ def _launch(tab: UopTable, image: MemImage, m: Machine, limit: int,
             tab.hash_tab.shape[0] - 1):
         raise ValueError("edge bitmap and hash table sizes must be "
                          "powers of two")
+    if ov.valid.data_ptr() % 16:
+        raise ValueError("fused_step: overlay.valid must be 16-byte "
+                         "aligned (a claimed row is cleared in 16-byte "
+                         "stores)")
+    grid, block, shared = launch_geometry(n, slots)
     lib = library("fused_step")
     p = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
     stream = torch.cuda.current_stream(dev)
@@ -186,8 +236,8 @@ def _launch(tab: UopTable, image: MemImage, m: Machine, limit: int,
         p(m.gpr), p(m.rip), p(m.rflags), p(m.status), p(m.icount),
         p(m.bp_skip), p(m.ctr), p(m.cov), m.cov.shape[1], p(m.edge),
         m.edge.shape[1], p(ov.pfn), p(ov.data), p(ov.valid), p(ov.count),
-        slots, ctypes.c_int64(I.s64(limit)), n, k_steps, BLOCK,
-        ctypes.c_void_p(stream.cuda_stream))
+        slots, ctypes.c_int64(I.s64(limit)), n, k_steps, grid, block,
+        shared, ctypes.c_void_p(stream.cuda_stream))
     LAUNCHES["fused_step"] += 1
     if err:
         raise RuntimeError(f"fused_step kernel launch failed: cuda error "
