@@ -12,7 +12,9 @@ Phases (each prints one line; any failure exits non-zero):
   3. the fused step kernel (K1) against its plain PyTorch version at 4096
      lanes, k=32, on seeded random machines (hot register grids, memory and
      stack forms, page crossings, park causes, a breakpoint with bp_skip,
-     full overlays, the instruction budget): all 13 planes bit-identical;
+     full overlays, the instruction budget, a high-half copy of the code
+     and data at canonical-negative addresses): all 13 planes
+     bit-identical;
      then a ragged set: 1001 lanes (not a whole number of blocks) of 50
      overlay rows (not a whole number of 32-row lookup rounds), with one
      pfn in several rows, rows claimed up to count == slots, pfns found
@@ -30,8 +32,30 @@ Phases (each prints one line; any failure exits non-zero):
      so the host's share of the first run's wall
   6. a 64-lane, 256-run campaign at the same seed on the card and on the
      CPU: equal corpus digests, crash names and coverage/edge bitmaps
+  7. the precise step's integer and system classes on the card against the
+     CPU: 4096 seeded random lanes whose next instruction is DIV/IDIV at
+     every width (divisors 0, -1, INT64_MIN on some lanes), a string form
+     with or without REP, BT on memory with negative bit offsets, a bit
+     scan, CMPXCHG/XADD/XCHG on memory, CPUID, RDMSR/WRMSR, SYSCALL/SYSRET,
+     SWAPGS, MOV CR, PUSHF/POPF, ENTER/LEAVE or a flag op; a few steps of
+     `step` on each (the card computing only the groups its scan finds,
+     the CPU every group): every plane bit-identical
+  8. the second main path: `campaign --name demo_kernel --fused-step on
+     --lanes 4096 --runs 16384 --limit 100000 --max_len 96 --seed 5` (ring
+     0 at canonical-negative addresses through syscall/swapgs/sysretq),
+     counts zeroed just before and read just after: K1 launched, no oracle
+     fallback, every lane terminal; execs/s, spans, occupancy, statuses,
+     crash names, device memory
+  9. demo_kernel and demo_usermode card against CPU: `run` on the crash
+     classes and benign inputs of tests/test_kernel.py and the cases of
+     tests/test_usermode.py, and a 64-lane, 256-run campaign of each at
+     the same seed: equal results, crash names, corpus digests and
+     coverage/edge bitmaps
 
-Every phase always runs, at the sizes above.  The card's nvidia-smi line
+Every phase always runs, at the sizes above.  Phases 6 and 9 run last,
+after the timed phases: their CPU sides run in worker processes started
+together (spawned, and joined before the script ends) while this process
+runs their card sides.  The card's nvidia-smi line
 comes before the last, the kernels' JSON record before that; the last
 line is {"ok": true, "device": {...}}.  Without a CUDA device, or without the rest
 of the repository beside it, the script exits non-zero before printing
@@ -42,10 +66,12 @@ from __future__ import annotations
 
 import argparse
 import json
+import multiprocessing
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM (NVIDIA data sheet)
@@ -102,6 +128,55 @@ GRID_CODE_GVA = 0x0001_4000_0000
 GRID_DATA_GVA = 0x0002_0000_0000       # 4 writable pages
 GRID_RO_GVA = 0x0002_0000_8000         # 1 read-only page
 GRID_STACK_TOP = 0x0000_7FFF_F000
+GRID_KCODE_GVA = 0xFFFF_8000_4000_0000  # the grid code again, high half
+GRID_KDATA_GVA = 0xFFFF_8000_5000_0000  # 2 writable high-half pages
+
+KCAMPAIGN = ["campaign", "--name", "demo_kernel", "--fused-step", "on",
+             "--lanes", str(LANES), "--runs", str(RUNS), "--limit",
+             "100000", "--max_len", "96", "--seed", "5"]
+
+# Phase 7's guest: the integer and system classes of the precise step, one
+# after another (GNU as, Intel syntax; ` ; ` separates instructions).
+SYS_ASM = """
+top: div cl ; div cx ; div ecx ; div rcx ; idiv cl ; idiv cx ; idiv ecx
+     idiv rcx ; div byte ptr [rbx] ; idiv qword ptr [rbx + 8]
+     movsb ; movsq ; stosd ; lodsw ; scasb ; cmpsq
+     rep movsb ; rep stosq ; repe cmpsb ; repne scasb ; rep lodsd
+     bt qword ptr [rbx], rcx ; bts dword ptr [rbx], ecx
+     btr word ptr [rbx], cx ; btc qword ptr [rbx], rdx
+     bt rax, rcx ; bts r8d, 17 ; btr r9, rcx ; btc ax, cx
+     bsf rax, rcx ; bsr edx, ecx ; tzcnt r8, rcx ; lzcnt r9d, ecx
+     popcnt r10, rcx ; popcnt ax, cx ; bsf dx, cx
+     cmpxchg [rbx + 0x10], rcx ; cmpxchg ecx, edx
+     xadd [rbx + 0x18], rax ; xadd r9w, r10w
+     xchg [rbx + 0x20], rdx ; xchg ecx, r8d
+     bswap rax ; bswap r9d ; cbw ; cwde ; cdqe ; cwd ; cdq ; cqo
+     andn rax, rbx, rcx ; bzhi rdx, rcx, rax ; bextr r8, rcx, rdx
+     shlx r9, rcx, rax ; shrx r10d, ecx, edx ; sarx r11, rcx, rax
+     pdep rax, rcx, rdx ; pext rdx, rcx, rax ; blsr r8, rcx
+     blsmsk r9, rcx ; blsi r10, rcx ; rorx r11, rcx, 13
+     cpuid ; rdtsc ; rdrand rax ; rdrand cx ; xgetbv
+     rdmsr ; wrmsr ; syscall ; sysretq ; swapgs
+     rdfsbase rax ; rdgsbase r9 ; wrfsbase rax ; wrgsbase rcx
+     mov rax, cr0 ; mov cr0, rax ; mov rdx, cr3 ; mov cr3, rdx
+     mov cr4, rcx ; mov r8, cr8 ; mov cr8, r9 ; mov rax, cr2
+     pushfq ; popfq ; lahf ; sahf ; clc ; stc ; cmc ; cld ; std
+     enter 0x20, 0 ; leave ; add rax, rcx ; int3 ; hlt ; int 0x29
+     jmp top
+"""
+SYS_CODE = bytes.fromhex(
+    "f6f166f7f1f7f148f7f1f6f966f7f9f7f948f7f9f63348f77b08a448a5ab66ad"
+    "ae48a7f3a4f348abf3a6f2aef3ad480fa30b0fab0b660fb30b480fbb13480fa3"
+    "c8410fbae811490fb3c9660fbbc8480fbcc10fbdd1f34c0fbcc1f3440fbdc9f3"
+    "4c0fb8d166f30fb8c1660fbcd1480fb14b100fb1d1480fc1431866450fc1d148"
+    "8753204487c1480fc8410fc966989848986699994899c4e2e0f2c1c4e2f8f5d1"
+    "c462e8f7c1c462f9f7c9c4626bf7d1c462faf7d9c4e2f3f5c2c4e2f2f5d0c4e2"
+    "b8f3c9c4e2b0f3d1c4e2a8f3d9c463fbf0d90d0fa20f31480fc7f0660fc7f10f"
+    "01d00f320f300f05480f070f01f8f3480faec0f3490faec9f3480faed0f3480f"
+    "aed90f20c00f22c00f20da0f22da0f22e1450f20c0450f22c10f20d09c9d9f9e"
+    "f8f9f5fcfdc8200000c94801c8ccf4cd29e9cafeffff")
+SYS_CODE_GVA = 0x0001_5000_0000
+SYS_STEPS = 6
 
 
 def fail(msg: str) -> None:
@@ -158,8 +233,27 @@ def plane_diff(a, b) -> tuple:
 
 
 # ---------------------------------------------------------------------------
-# phase 3: seeded random machines
+# phases 3 and 7: seeded random machines
 # ---------------------------------------------------------------------------
+
+def s64(v: int) -> int:
+    """The int64 with the low 64 bits of v (guest addresses above 2**63)."""
+    v &= (1 << 64) - 1
+    return v - (1 << 64) if v >> 63 else v
+
+
+def decode_all(runner, view, code: bytes, base: int) -> list:
+    """Publish every instruction of `code` at `base` -> their rips."""
+    from wtf_tpu_torch.cpu.decoder import decode
+
+    rips, off = [], 0
+    while off < len(code):
+        rip = base + off
+        rips.append(rip)
+        runner._decode_at(view, 0, rip)
+        off += decode(code[off:off + 15], rip).length
+    return rips
+
 
 def grid_state(n_lanes: int, seed: int, dev, slots: int = SLOTS,
                ragged: bool = False):
@@ -171,26 +265,23 @@ def grid_state(n_lanes: int, seed: int, dev, slots: int = SLOTS,
     import torch
 
     from wtf_tpu_torch.core.results import StatusCode
-    from wtf_tpu_torch.cpu.decoder import decode
     from wtf_tpu_torch.interp.runner import Runner
     from wtf_tpu_torch.snapshot.loader import Snapshot
     from wtf_tpu_torch.snapshot.synthetic import SyntheticSnapshotBuilder
 
     b = SyntheticSnapshotBuilder()
     b.write(GRID_CODE_GVA, GRID_CODE)
+    b.write(GRID_KCODE_GVA, GRID_CODE)
     b.map(GRID_DATA_GVA, 0x4000)
+    b.map(GRID_KDATA_GVA, 0x2000)
     b.map(GRID_RO_GVA, 0x1000, writable=False)
     b.map(GRID_STACK_TOP - 0x8000, 0x9000)
     pages, cpu = b.build(rip=GRID_CODE_GVA, rsp=GRID_STACK_TOP - 0x1000)
     r = Runner(Snapshot.from_pages(pages, cpu), n_lanes=n_lanes,
                overlay_slots=slots, device=dev)
     view = r.view()
-    rips, off = [], 0
-    while off < len(GRID_CODE):
-        rip = GRID_CODE_GVA + off
-        rips.append(rip)
-        r._decode_at(view, 0, rip)
-        off += decode(GRID_CODE[off:off + 15], rip).length
+    rips = decode_all(r, view, GRID_CODE, GRID_CODE_GVA)
+    krips = decode_all(r, view, GRID_CODE, GRID_KCODE_GVA)
     # breakpoints on two hot instructions (lanes with bp_skip pass them)
     for rip in (rips[3], rips[40]):
         r.cache.set_breakpoint(rip)
@@ -202,21 +293,28 @@ def grid_state(n_lanes: int, seed: int, dev, slots: int = SLOTS,
         return torch.randint(lo, hi, shape, generator=g, device=dev)
 
     def pick(values, shape=(n,)):
-        v = torch.tensor(values, dtype=torch.int64, device=dev)
+        v = torch.tensor([s64(x) for x in values], dtype=torch.int64,
+                         device=dev)
         return v[rint(0, len(values), shape)]
 
-    m.rip = pick(rips)
+    # a quarter of the lanes run the high-half copy of the code, and a
+    # quarter address the high-half data (canonical-negative walks, and
+    # mix64 of a negative rip in the edge hash)
+    m.rip = torch.where(rint(0, 4) == 0, pick(krips), pick(rips))
     m.gpr = rint(-2**63, 2**63 - 1, (n, 16))
     small = rint(0, 2, (n,)) == 1
     m.gpr[:, 1] = torch.where(small, rint(0, 4), m.gpr[:, 1])
-    m.gpr[:, 3] = GRID_DATA_GVA + rint(0, 0x1000)              # rbx
+    m.gpr[:, 3] = torch.where(rint(0, 4) == 0, s64(GRID_KDATA_GVA),
+                              GRID_DATA_GVA) + rint(0, 0x1000)  # rbx
     bad_rbx = rint(0, 16) == 0
     m.gpr[:, 3] = torch.where(bad_rbx, rint(0, 2**40), m.gpr[:, 3])
     m.gpr[:, 4] = GRID_STACK_TOP - 0x1000 - 8 * rint(0, 64)    # rsp
     m.gpr[:, 4] = torch.where(rint(0, 16) == 0, rint(0, 2**40), m.gpr[:, 4])
     m.gpr[:, 13] = pick([GRID_DATA_GVA + 0x40, GRID_RO_GVA + 8,
-                         GRID_DATA_GVA + 0x3ffc, 0x7000_0000_0000])
-    m.gpr[:, 14] = pick([GRID_DATA_GVA + 0x80, GRID_RO_GVA, 0x1000])
+                         GRID_DATA_GVA + 0x3ffc, 0x7000_0000_0000,
+                         GRID_KDATA_GVA + 0x1ffc, -2**47])
+    m.gpr[:, 14] = pick([GRID_DATA_GVA + 0x80, GRID_RO_GVA, 0x1000,
+                         GRID_KDATA_GVA + 0x80])
     m.rflags = (rint(0, 1 << 12) | 2) | (rint(0, 1 << 20) << 32)
     m.icount = rint(0, 1030)        # limit 1000: a few lanes time out
     m.bp_skip = (rint(0, 3) == 0).to(torch.int32)
@@ -251,6 +349,86 @@ def grid_state(n_lanes: int, seed: int, dev, slots: int = SLOTS,
                     used[..., None]).to(torch.uint8))
     ov.data.copy_(rint(-2**63, 2**63 - 1, tuple(ov.data.shape)))
     return r.cache.device(dev), r.image, m, 1000
+
+
+def sys_state(n_lanes: int, seed: int, dev):
+    """(runner, machine) of n_lanes random lanes of the phase-7 guest, each
+    at a random instruction of it, with registers drawn to reach the
+    classes' corner cases (divisors 0, -1 and INT64_MIN, negative bit
+    offsets, known MSR ids and CPUID leaves, rep counts 0-3, DF set or
+    clear, canonical and non-canonical fs/gs bases)."""
+    import torch
+
+    from wtf_tpu_torch.core.results import StatusCode
+    from wtf_tpu_torch.interp.runner import Runner
+    from wtf_tpu_torch.snapshot.loader import Snapshot
+    from wtf_tpu_torch.snapshot.synthetic import SyntheticSnapshotBuilder
+
+    b = SyntheticSnapshotBuilder()
+    b.write(SYS_CODE_GVA, SYS_CODE)
+    b.map(GRID_DATA_GVA, 0x4000)
+    b.map(GRID_KDATA_GVA, 0x2000)
+    b.map(GRID_STACK_TOP - 0x8000, 0x9000)
+    pages, cpu = b.build(rip=SYS_CODE_GVA, rsp=GRID_STACK_TOP - 0x1000)
+    cpu.lstar = SYS_CODE_GVA
+    cpu.star = 0x0023_0010_0000_0000
+    cpu.sfmask = 0x4700
+    cpu.kernel_gs_base = GRID_KDATA_GVA
+    r = Runner(Snapshot.from_pages(pages, cpu), n_lanes=n_lanes,
+               overlay_slots=16, device=dev)
+    rips = decode_all(r, r.view(), SYS_CODE, SYS_CODE_GVA)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    m = r.machine
+    n = n_lanes
+
+    def rint(lo, hi, shape=(n,)):
+        return torch.randint(lo, hi, shape, generator=g, device=dev)
+
+    def pick(values, shape=(n,)):
+        v = torch.tensor([s64(x) for x in values], dtype=torch.int64,
+                         device=dev)
+        return v[rint(0, len(values), shape)]
+
+    def data_ptr(span):
+        base = torch.where(rint(0, 4) == 0, s64(GRID_KDATA_GVA),
+                           GRID_DATA_GVA)
+        ptr = base + rint(0, span)
+        return torch.where(rint(0, 16) == 0, rint(0, 2**40), ptr)
+
+    m.rip = pick(rips)
+    m.gpr = rint(-2**63, 2**63 - 1, (n, 16))
+    m.gpr[:, 0] = torch.where(rint(0, 2) == 0, pick(
+        [0, 1, 7, 0xD, 0x1234, 0x4000_0000, 0x8000_0001, -2**63, -5]),
+        m.gpr[:, 0])
+    m.gpr[:, 1] = pick([0, 1, 2, 3, -1, -2**63, 7, -9, -0x4000, 100,
+                        0x10, 0xC000_0080, 0xC000_0082, 0xC000_0102,
+                        0x1234_5678]).where(rint(0, 4) > 0, m.gpr[:, 1])
+    m.gpr[:, 2] = torch.where(rint(0, 2) == 0, 0, m.gpr[:, 2])
+    m.gpr[:, 3] = data_ptr(0x1000)                              # rbx
+    m.gpr[:, 4] = GRID_STACK_TOP - 0x1000 - 8 * rint(0, 64)    # rsp
+    m.gpr[:, 5] = GRID_STACK_TOP - 0x800 - 8 * rint(0, 64)     # rbp
+    m.gpr[:, 6] = data_ptr(0x1000)                              # rsi
+    m.gpr[:, 7] = data_ptr(0x1000)                              # rdi
+    m.rflags = (rint(0, 1 << 12) | 2) | (rint(0, 1 << 20) << 32)
+    m.icount = rint(0, 1 << 40)
+    m.tsc = rint(0, 1 << 50)
+    m.rdrand = rint(-2**63, 2**63 - 1)
+    m.fs_base = pick([0, GRID_DATA_GVA, -2**63])
+    m.gs_base = pick([0, GRID_KDATA_GVA])
+    m.star = pick([0x0023_0010_0000_0000, 0x0033_0008_0000_0000])
+    m.bp_skip = (rint(0, 3) == 0).to(torch.int32)
+    status = torch.full((n,), int(StatusCode.RUNNING), device=dev)
+    others = pick([int(StatusCode.OK), int(StatusCode.CRASH),
+                   int(StatusCode.NEEDS_XLA)])
+    m.status = torch.where(rint(0, 10) == 0, others, status).int()
+    m.ctr = rint(0, 1 << 20, (n, 6)).int()
+    return r, m
+
+
+def machine_to_cpu(dst, src) -> None:
+    """Copy every plane of machine `src` into the same-shaped `dst`."""
+    for (_, a), (_, b) in zip(dst.planes(), src.planes()):
+        a.copy_(b.cpu())
 
 
 # ---------------------------------------------------------------------------
@@ -434,6 +612,8 @@ def phase_campaign(k1: dict, k2: dict, record: dict) -> None:
           f"{len(loop.corpus)}")
     k1["launches"] = launches["fused_step"]
     k2["launches"] = launches["probe"]
+    k1["launches_by_path"] = {"demo_tlv": launches["fused_step"]}
+    k2["launches_by_path"] = {"demo_tlv": launches["probe"]}
     record["campaign"] = {
         "testcases": loop.stats.testcases, "wall_s": wall,
         "execs_per_s": loop.stats.testcases / wall,
@@ -518,27 +698,207 @@ def phase_campaign(k1: dict, k2: dict, record: dict) -> None:
         "top_device": [(name, n, sec) for name, (n, sec) in top[:20]]})
 
 
-def phase_card_vs_cpu() -> None:
+def small_campaign(name: str, device: str, limit: int = 20000) -> tuple:
+    """(corpus digests, crash names, cov bytes, edge bytes, statuses,
+    seconds) of a 64-lane, 256-run campaign at seed 5 on `device`."""
     from wtf_tpu_torch import cli
 
-    outs = {}
-    for device in ("cuda", "cpu"):
+    a = cli.build_parser().parse_args(
+        ["campaign", "--name", name, "--fused-step", "on", "--lanes", "64",
+         "--runs", "256", "--limit", str(limit), "--max_len", "96",
+         "--seed", "5", "--device", device])
+    t0 = time.perf_counter()
+    loop = cli.campaign(a)
+    b = loop.backend
+    return (sorted(loop.corpus.digests), sorted(loop.crash_names),
+            b._agg_cov.cpu().numpy().tobytes(),
+            b._agg_edge.cpu().numpy().tobytes(), dict(b.status_counts),
+            time.perf_counter() - t0)
+
+
+def replay_runs(name: str, inputs: dict, device: str) -> list:
+    """[(input, result, rip, icount)] of `run --name name` over inputs."""
+    from wtf_tpu_torch import cli
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for key, data in inputs.items():
+            (Path(tmp) / key).write_bytes(data)
         a = cli.build_parser().parse_args(
-            ["campaign", "--name", "demo_tlv", "--fused-step", "on",
-             "--lanes", "64", "--runs", "256", "--limit", "20000",
-             "--max_len", "96", "--seed", "5", "--device", device])
-        t0 = time.perf_counter()
-        loop = cli.campaign(a)
-        b = loop.backend
-        outs[device] = (sorted(loop.corpus.digests), sorted(
-            loop.crash_names), b._agg_cov.cpu().numpy().tobytes(),
-            b._agg_edge.cpu().numpy().tobytes(), time.perf_counter() - t0)
-    check(all(outs["cuda"][i] == outs["cpu"][i] for i in range(4)),
+            ["run", "--name", name, "--input", tmp, "--fused-step", "on",
+             "--limit", "100000", "--device", device])
+        _, runs = cli.replay(a)
+    return [(r.path.name, str(r.result), r.rip, r.icount) for r in runs]
+
+
+def cpu_job(fn, threads: int, *args):
+    """Run fn(*args) in a worker process on `threads` CPU threads."""
+    import torch
+
+    torch.set_num_threads(threads)
+    return fn(*args)
+
+
+def phase_card_vs_cpu(cpu) -> None:
+    card = small_campaign("demo_tlv", "cuda")
+    want = cpu["demo_tlv"].result()
+    check(all(card[i] == want[i] for i in range(4)),
           "64-lane campaign differs between card and cpu")
     print(f"phase 6: 64-lane 256-run campaign, card == cpu: "
-          f"{len(outs['cuda'][0])} corpus digests, "
-          f"{len(outs['cuda'][1])} crash names, equal cov/edge bytes "
-          f"(card {outs['cuda'][4]:.1f} s, cpu {outs['cpu'][4]:.1f} s)")
+          f"{len(card[0])} corpus digests, {len(card[1])} crash names, "
+          f"equal cov/edge bytes (card {card[5]:.1f} s, cpu {want[5]:.1f} s "
+          f"in a worker process)")
+
+
+def phase_step_sys(dev, record: dict) -> None:
+    import numpy as np
+    import torch
+
+    from wtf_tpu_torch.interp import step as S
+    from wtf_tpu_torch.interp.machine import CTR_INSTR
+
+    t0 = time.perf_counter()
+    rg, mg = sys_state(LANES, 7, dev)
+    rc, mc = sys_state(LANES, 7, "cpu")      # same guest, same decode order
+    machine_to_cpu(mc, mg)
+    tab_g, tab_c = rg.cache.device(dev), rc.cache.device("cpu")
+    start = mg.clone()
+    groups_seen, ms = [], 0.0
+    for _ in range(SYS_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        pre, _, groups = S.scan(tab_g, rg.image, mg)
+        S.step(tab_g, rg.image, mg, 1 << 41, pre, groups)
+        torch.cuda.synchronize()
+        ms += (time.perf_counter() - t1) * 1e3
+        S.step(tab_c, rc.image, mc, 1 << 41)
+        groups_seen.append(sorted(groups))
+    bad = [name for (name, a), (_, b) in zip(mc.planes(), mg.planes())
+           if not torch.equal(a, b.cpu())]
+    check(not bad, f"the precise step differs between card and cpu in {bad}")
+    st = mg.status.cpu().numpy()
+    counts = {int(k): int(v) for k, v in zip(*np.unique(
+        st, return_counts=True))}
+    retired = int((mg.ctr[:, CTR_INSTR] - start.ctr[:, CTR_INSTR]).sum())
+    print(f"phase 7: precise step on {LANES} random lanes of the integer and "
+          f"system classes, {SYS_STEPS} steps, card == cpu on every plane: "
+          f"retired {retired}, statuses {counts}, groups per step "
+          f"{groups_seen[0]}; card {ms / SYS_STEPS:.1f} ms per step "
+          f"(host clock) ({time.perf_counter() - t0:.1f} s)")
+    record["step_sys"] = {"lanes": LANES, "steps": SYS_STEPS,
+                          "retired": retired, "statuses": counts,
+                          "card_ms_per_step": ms / SYS_STEPS}
+
+
+def phase_kernel_campaign(k1: dict, k2: dict, record: dict) -> None:
+    import torch
+
+    from wtf_tpu_torch import cli
+    from wtf_tpu_torch.interp import pstep
+
+    a = cli.build_parser().parse_args(KCAMPAIGN)
+    torch.cuda.reset_peak_memory_stats()
+    for name in pstep.LAUNCHES:
+        pstep.LAUNCHES[name] = 0
+    t0 = time.perf_counter()
+    loop = cli.campaign(a)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(pstep.LAUNCHES)
+    in_use, peak = torch.cuda.memory_allocated(), \
+        torch.cuda.max_memory_allocated()
+    backend = loop.backend
+    reg = backend.registry
+    instr = reg.counter("device.instructions").value
+    fused = reg.counter("device.fused_steps").value
+    occupancy = fused / max(instr, 1)
+    counts = backend.status_counts
+    fallbacks = backend.runner.stats["fallbacks"]
+    terminal = {"OK", "CRASH", "TIMEDOUT", "PAGE_FAULT", "OVERLAY_FULL",
+                "CR3_CHANGE", "DIVIDE_ERROR", "HARD_ERROR"}
+    check(launches["fused_step"] > 0, f"K1 never launched: {launches}")
+    check(launches["probe"] > 0, f"K2 never launched: {launches}")
+    check(fallbacks == 0, f"demo_kernel fell back to the oracle "
+                          f"{fallbacks} times: "
+                          f"{backend.runner.stats['fallbacks_by_opclass']}")
+    check(set(counts) <= terminal
+          and sum(counts.values()) == loop.stats.testcases >= RUNS,
+          f"non-terminal lanes: {counts}")
+    batches = backend.stats["batches"]
+    spans = reg.spans
+    span_s = {p: spans.seconds(p) for p in (
+        "mutate", "execute", "harvest", "restore", "execute/insert",
+        "execute/fused-step", "execute/device-step", "execute/service-pull",
+        "execute/service-decode", "execute/service-push",
+        "execute/cov-readback", "restore/overlay-restore")}
+    names = sorted(loop.crash_names)
+    print(f"phase 8: demo_kernel campaign {loop.stats.testcases} testcases "
+          f"in {wall:.2f} s = {loop.stats.testcases / wall:.1f} execs/s; K1 "
+          f"launches {launches['fused_step']} ({launches['fused_step'] / batches:.1f} "
+          f"per batch), K2 {launches['probe']}; fused occupancy "
+          f"{occupancy:.4f} ({fused}/{instr}); oracle fallbacks {fallbacks}; "
+          f"device bytes in use {in_use} (peak {peak}); statuses {counts}; "
+          f"{len(names)} crash names {names[:6]}; spans "
+          + ", ".join(f"{k} {v:.2f}" for k, v in span_s.items()))
+    k1["launches_by_path"]["demo_kernel"] = launches["fused_step"]
+    k2["launches_by_path"]["demo_kernel"] = launches["probe"]
+    record["kernel_campaign"] = {
+        "testcases": loop.stats.testcases, "wall_s": wall,
+        "execs_per_s": loop.stats.testcases / wall,
+        "k1_launches": launches["fused_step"], "batches": batches,
+        "occupancy": occupancy, "instructions": instr,
+        "fallbacks": fallbacks, "spans": span_s, "bytes_in_use": in_use,
+        "peak_bytes": peak, "statuses": counts, "crash_names": names}
+    backend.restore()
+    del loop, backend
+    torch.cuda.empty_cache()
+
+
+KERNEL_RUNS = {
+    "benign": b"\x01\x01\x02\x03\x04",
+    "bugcheck": b"\x02\xef\xbe\xad\xde\x41\x00\x00\x00\x00\x00\x00\x00pad",
+    "oob_write": b"\x03" + b"A" * 200,
+    "wild_jump": b"\x04\x00\x00\xad\xde\x00\x00\x00\x00x",
+    "sum": b"\x01" + bytes(range(250)),
+}
+USER_RUNS = {f"case{i}": data for i, data in enumerate(
+    [b"\x01\x04", b"\x02", b"\x03", b"", b"\x01\x0e", b"\x01\x00",
+     b"\x04\x05", b"\x05"])}
+
+
+def phase_targets_card_vs_cpu(cpu) -> None:
+    for name, inputs in (("demo_kernel", KERNEL_RUNS),
+                         ("demo_usermode", USER_RUNS)):
+        card = replay_runs(name, inputs, "cuda")
+        want = cpu[f"run {name}"].result()
+        check(card == want, f"run {name} differs: card {card} cpu {want}")
+        print(f"phase 9: run {name}, card == cpu: " + "; ".join(
+            f"{k} {res} icount {ic}" for k, res, _, ic in card))
+        card = small_campaign(name, "cuda", 100000)
+        want = cpu[name].result()
+        check(all(card[i] == want[i] for i in range(5)),
+              f"64-lane {name} campaign differs between card and cpu")
+        print(f"phase 9: 64-lane 256-run {name} campaign, card == cpu: "
+              f"{len(card[0])} corpus digests, crash names {card[1]}, "
+              f"statuses {card[4]}, equal cov/edge bytes (card "
+              f"{card[5]:.1f} s, cpu {want[5]:.1f} s in a worker process)")
+
+
+def start_cpu_references(pool) -> dict:
+    """The CPU sides of phases 6 and 9, started together in worker
+    processes once the card's timed phases are done."""
+    import os
+
+    jobs = {"demo_tlv": (small_campaign, "demo_tlv", "cpu"),
+            "demo_kernel": (small_campaign, "demo_kernel", "cpu", 100000),
+            "demo_usermode": (small_campaign, "demo_usermode", "cpu",
+                              100000),
+            "run demo_kernel": (replay_runs, "demo_kernel", KERNEL_RUNS,
+                                "cpu"),
+            "run demo_usermode": (replay_runs, "demo_usermode", USER_RUNS,
+                                  "cpu")}
+    threads = max(1, (os.cpu_count() or 1) // len(jobs))
+    return {key: pool.submit(cpu_job, job[0], threads, *job[1:])
+            for key, job in jobs.items()}
 
 
 def main(argv=None) -> int:
@@ -567,7 +927,16 @@ def main(argv=None) -> int:
     phase_random(dev, k1)
     phase_run()
     phase_campaign(k1, k2, record)
-    phase_card_vs_cpu()
+    phase_step_sys(dev, record)
+    phase_kernel_campaign(k1, k2, record)
+    # the CPU references of phases 6 and 9 run in worker processes, after
+    # every timed phase, while this process runs their card sides
+    with ProcessPoolExecutor(
+            max_workers=5, mp_context=multiprocessing.get_context(
+                "spawn")) as pool:
+        cpu = start_cpu_references(pool)
+        phase_card_vs_cpu(cpu)
+        phase_targets_card_vs_cpu(cpu)
 
     kernels = {"kernels": [k1, k2]}
     if args.out is not None:

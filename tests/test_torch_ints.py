@@ -2,10 +2,13 @@
 wtf_tpu/interp/limbs.py (the same on u32 limb pairs), bit for bit, on the
 corner grids of tests/test_limbs.py: limb and sign boundaries, all-ones,
 irregular patterns, and shift counts across the limb boundary and past 64.
-One parametrised test, one case per operation family.
+The division, bit-count, byte-swap and BMI helpers the precise step's
+integer classes use are held against the JAX step's own operations on the
+same grids.  One parametrised test, one case per operation family.
 """
 
 import jax.numpy as jnp
+from jax import lax
 import numpy as np
 import pytest
 import torch
@@ -168,6 +171,58 @@ def _case_eval_cond():
     return out
 
 
+def _case_division():
+    """The JAX step divides u64 (`//`, `%`) and s64 (lax.div / lax.rem)
+    with the divisor made safe; INT64_MIN / -1 is guarded there too."""
+    ax, bx = _cross(CORNERS, [b for b in CORNERS if b])
+    a = np.array(ax, dtype=np.uint64)
+    b = np.array(bx, dtype=np.uint64)
+    ja, jb = jnp.asarray(a), jnp.asarray(b)
+    q, r = I.udivmod(_t(ax), _t(bx))
+    sa, sb = ja.astype(jnp.int64), jb.astype(jnp.int64)
+    edge = (sa == jnp.int64(-2**63)) & (sb == jnp.int64(-1))
+    safe = jnp.where(edge, jnp.int64(1), sb)
+    sq, sr = I.sdivmod(_t(ax), _t(bx))
+    out = [(np.asarray(ja // jb), _u(q)), (np.asarray(ja % jb), _u(r)),
+           (np.asarray(lax.div(sa, safe)).view(np.uint64), _u(sq)),
+           (np.asarray(lax.rem(sa, safe)).view(np.uint64), _u(sr))]
+    # a zero divisor reads as 1 (its lanes raise #DE in the step)
+    zq, zr = I.sdivmod(_t(CORNERS), torch.zeros(len(CORNERS),
+                                                dtype=torch.int64))
+    out += [(np.array(CORNERS, dtype=np.uint64), _u(zq)),
+            (np.zeros(len(CORNERS), dtype=np.uint64), _u(zr))]
+    return out
+
+
+def _case_bit_counts():
+    from wtf_tpu.interp import step as JS
+
+    a = jnp.asarray(np.array(CORNERS, dtype=np.uint64))
+    ta = _t(CORNERS)
+    out = [(np.asarray(JS._popcnt(a)), _u(I.popcnt(ta))),
+           (np.asarray(JS._bitlen(a)), _u(I.bitlen(ta)))]
+    for nbytes in (2, 4, 8):
+        want = [int.from_bytes((v & ((1 << nbytes * 8) - 1)).to_bytes(
+            nbytes, "little"), "big") for v in CORNERS]
+        out.append((np.array(want, dtype=np.uint64),
+                    _u(I.bswap(ta, torch.full((len(CORNERS),), nbytes)))))
+    ax, bx = _cross(CORNERS, CORNERS)
+
+    def pext(src, mask):
+        bits = [(src >> i) & 1 for i in range(64) if (mask >> i) & 1]
+        return sum(b << k for k, b in enumerate(bits))
+
+    def pdep(src, mask):
+        pos = [i for i in range(64) if (mask >> i) & 1]
+        return sum(((src >> k) & 1) << i for k, i in enumerate(pos))
+
+    out += [(np.array([pext(s, m) for s, m in zip(ax, bx)], dtype=np.uint64),
+             _u(I.pext(_t(ax), _t(bx)))),
+            (np.array([pdep(s, m) for s, m in zip(ax, bx)], dtype=np.uint64),
+             _u(I.pdep(_t(ax), _t(bx))))]
+    return out
+
+
 CASES = {
     "add_sub_carry": _case_add_sub,
     "logic_compare": _case_logic_compare,
@@ -176,6 +231,8 @@ CASES = {
     "widths": _case_widths,
     "flags": _case_flags,
     "eval_cond": _case_eval_cond,
+    "division": _case_division,
+    "bit_counts": _case_bit_counts,
 }
 
 

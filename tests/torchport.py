@@ -24,7 +24,9 @@ from wtf_tpu.mem.physmem import MemImage as JImage
 from wtf_tpu.snapshot.synthetic import SyntheticSnapshotBuilder as JBuilder
 from wtf_tpu_torch import convert
 from wtf_tpu_torch.core.gxa import PAGE_SIZE
-from wtf_tpu_torch.cpu.emu import EmuCpu, EmuMem, GuestCrash, MemFault
+from wtf_tpu_torch.cpu.emu import (
+    DivideError, EmuCpu, EmuMem, GuestCrash, MemFault, UnsupportedInsn,
+)
 from wtf_tpu_torch.interp.machine import machine_init
 from wtf_tpu_torch.interp.runner import Runner
 from wtf_tpu_torch.mem.physmem import PhysMem
@@ -86,15 +88,15 @@ def jax_guest(asm: str, data=None, regs=None, readonly=None, large=None):
 
 
 def oracle_rips(pages, cpu, max_steps: int = 20_000):
-    """Every rip the host oracle visits, in order (until int3/hlt or a
-    fault)."""
+    """Every rip the host oracle visits, in order (until int3/hlt, a
+    fault, #DE or an instruction the oracle does not model)."""
     emu = EmuCpu(EmuMem(PhysMem.from_pages(pages)), cpu.copy())
     rips = []
     for _ in range(max_steps):
         rips.append(emu.rip)
         try:
             emu.step()
-        except (GuestCrash, MemFault):
+        except (GuestCrash, MemFault, DivideError, UnsupportedInsn):
             break
     return rips
 

@@ -7,6 +7,10 @@
   demo_tlv.py   - synthetic TLV-parser demo target with a planted stack
                   overflow (role of the reference's tlv_server demo,
                   src/tlv_server/tlv_server.cc + fuzzer_tlv_server.cc)
+  demo_kernel.py - synthetic ring-0 syscall handler with planted kernel
+                  bugs (role of the reference's HEVD target)
+  demo_usermode.py - guard-page stack growth and SEH dispatch through a
+                  real IDT
 """
 
 from wtf_tpu_torch.harness.targets import Target, Targets, register_target  # noqa: F401

@@ -109,6 +109,9 @@ def register_target(**kwargs) -> Target:
 def load_builtin_targets() -> None:
     """Import the in-tree demo target modules so their self-registration
     runs (the reference compiles fuzzer_*.cc into the binary; our
-    equivalent is importing the harness modules).  The port carries the
-    demo_tlv target so far; the other demos stay in the JAX package."""
-    from wtf_tpu_torch.harness import demo_tlv  # noqa: F401
+    equivalent is importing the harness modules).  The port carries
+    demo_tlv, demo_kernel and demo_usermode so far; the other demos stay
+    in the JAX package."""
+    from wtf_tpu_torch.harness import (  # noqa: F401
+        demo_kernel, demo_tlv, demo_usermode,
+    )

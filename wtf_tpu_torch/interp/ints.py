@@ -7,7 +7,9 @@ is one `int64` whose two's-complement bits ARE the u64 value.  Addition,
 subtraction, multiplication (low half), and/or/xor and left shifts are the
 native ops (they wrap mod 2**64 on every backend).  What PyTorch does not
 provide for int64 is written out below: logical right shift, unsigned
-compare, the high half of a 64x64 product, and carry/borrow outputs.
+compare, the high half of a 64x64 product, carry/borrow outputs,
+unsigned division and division that cannot trap, bit counts, byte swap
+and the BMI bit gather/scatter.
 PyTorch on the CPU has no uint64 `>>` and no uint32 add, so unsigned
 dtypes are not an option for the machine state.
 
@@ -253,3 +255,83 @@ def eval_cond(rf: torch.Tensor, rcx: torch.Tensor, cc) -> torch.Tensor:
     base = torch.gather(table, -1, cc.clamp(0, 15).unsqueeze(-1)).squeeze(-1)
     base = torch.where(cc == 16, rcx == 0, base)
     return torch.where(cc == 17, (rcx & MASK32) == 0, base)
+
+
+# ---------------------------------------------------------------------------
+# division (no lane may trap: the step computes every class on every lane,
+# and PyTorch on the CPU raises on a zero divisor and dies of SIGFPE on
+# INT64_MIN / -1)
+# ---------------------------------------------------------------------------
+
+def udivmod(a: torch.Tensor, b: torch.Tensor):
+    """Unsigned 64 / 64 -> (quotient, remainder); b must be nonzero.  A
+    divisor with bit 63 set gives a quotient of 0 or 1; any other is
+    positive as an int64, so the halved dividend divides signed without
+    trapping and one correction step fixes the doubled quotient."""
+    big = b < 0
+    b_pos = torch.where(big, torch.ones_like(b), b)
+    q = torch.div(shr(a, 1), b_pos, rounding_mode="trunc") << 1
+    r = a - q * b_pos
+    fix = ~ltu(r, b_pos)
+    q = torch.where(fix, q + 1, q)
+    r = torch.where(fix, r - b_pos, r)
+    q_big = (~ltu(a, b)).to(_I64)
+    return (torch.where(big, q_big, q),
+            torch.where(big, a - q_big * b, r))
+
+
+def sdivmod(a: torch.Tensor, b: torch.Tensor):
+    """Signed 64 / 64, truncating -> (quotient, remainder with the sign
+    of the dividend).  A zero divisor reads as 1 and INT64_MIN / -1 as
+    INT64_MIN / 1: the caller raises #DE for both."""
+    edge = (a == _SIGN) & (b == -1)
+    safe = torch.where((b == 0) | edge, torch.ones_like(b), b)
+    q = torch.div(a, safe, rounding_mode="trunc")
+    return q, a - q * safe
+
+
+# ---------------------------------------------------------------------------
+# bit counts and byte order
+# ---------------------------------------------------------------------------
+
+def popcnt(x: torch.Tensor) -> torch.Tensor:
+    x = x - (shr(x, 1) & 0x5555555555555555)
+    x = (x & 0x3333333333333333) + (shr(x, 2) & 0x3333333333333333)
+    x = (x + shr(x, 4)) & 0x0F0F0F0F0F0F0F0F
+    return shr(x * 0x0101010101010101, 56)
+
+
+def bitlen(x: torch.Tensor) -> torch.Tensor:
+    """Position of the highest set bit + 1 (0 for x == 0)."""
+    for s in (1, 2, 4, 8, 16, 32):
+        x = x | shr(x, s)
+    return popcnt(x)
+
+
+def bswap(x: torch.Tensor, nbytes) -> torch.Tensor:
+    """The low nbytes of x in reverse byte order (nbytes >= 8: all 8)."""
+    n = _i64(nbytes).clamp(0, 8)
+    out = torch.zeros_like(x)
+    for i in range(8):
+        byte = shr(x, 8 * i) & 0xFF
+        out = out | torch.where(i < n, shl(byte, (n - 1 - i) * 8),
+                                torch.zeros_like(x))
+    return out
+
+
+def pext(src: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The bits of src at mask's set positions, packed to the bottom."""
+    bit_i = torch.arange(64, device=src.device)
+    m = shr(mask[:, None], bit_i) & 1
+    rank = torch.cumsum(m, 1) - m
+    picked = shl(shr(src[:, None], bit_i) & 1, rank)
+    return torch.where(m != 0, picked, 0).sum(1)
+
+
+def pdep(src: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The low bits of src deposited at mask's set positions."""
+    bit_i = torch.arange(64, device=src.device)
+    m = shr(mask[:, None], bit_i) & 1
+    rank = torch.cumsum(m, 1) - m
+    placed = shl(shr(src[:, None], rank) & 1, bit_i)
+    return torch.where(m != 0, placed, 0).sum(1)

@@ -283,6 +283,8 @@ def fused_step_plain(tab: UopTable, image: MemImage, m: Machine,
     for _ in range(k_steps):
         gpr, rip, rf = m.gpr, m.rip, m.rflags
         run = m.status == _RUNNING
+        if not bool(run.any()):
+            break       # a step with no running lane changes nothing
         idx, idxc, d = S.probe(tab, image, m)
         miss = run & (idx < 0)
         at_bp = run & ~miss & (d.bp == 1) & (m.bp_skip == 0)
