@@ -6,9 +6,10 @@
 Phases (each prints one line; any failure exits non-zero):
   1. the card's name and power limit (nvidia-smi); build both hand-written
      kernels from csrc/ (one nvcc each, started together)
-  2. launch the availability probe kernel (K2) and check it returns 1
-     and print K1's ptxas report, its shared bytes per block and the warps
-     one SM holds (the CUDA occupancy calculator)
+  2. launch the availability probe kernel (K2) and check it returns 1,
+     and time an empty kernel from the same source (the launch floor, K2's
+     honest bound); phase 1 prints K1's ptxas report, its shared bytes per
+     block and the warps one SM holds (the CUDA occupancy calculator)
   3. the fused step kernel (K1) against its plain PyTorch version at 4096
      lanes, k=32, on seeded random machines (hot register grids, memory and
      stack forms, page crossings, park causes, a breakpoint with bp_skip,
@@ -51,8 +52,20 @@ Phases (each prints one line; any failure exits non-zero):
      tests/test_usermode.py, and a 64-lane, 256-run campaign of each at
      the same seed: equal results, crash names, corpus digests and
      coverage/edge bitmaps
+ 10. the third main path, device mutation in megachunk windows:
+     `campaign --name demo_tlv --mutator devmangle --megachunk 8
+     --fused-step on` at phase 5's size, counts zeroed just before and
+     read just after: K1 launched from the window, fused occupancy >=
+     0.95, windows > 0, every lane terminal; execs/s, spans, windows,
+     batches and K1 launches per window, the window's precise sweeps,
+     device memory; the same campaign with --megachunk 0 twice and the
+     window once more, in turns (equal results, execs/s of each, spans);
+     then the window campaign under torch.profiler for the host share
+ 11. a 64-lane, 256-run window campaign at the same seed on the card and
+     on the CPU, and on the card with --megachunk 0: equal corpus
+     digests, crash names and coverage/edge bitmaps
 
-Every phase always runs, at the sizes above.  Phases 6 and 9 run last,
+Every phase always runs, at the sizes above.  Phases 6, 9 and 11 run last,
 after the timed phases: their CPU sides run in worker processes started
 together (spawned, and joined before the script ends) while this process
 runs their card sides.  The card's nvidia-smi line
@@ -130,6 +143,10 @@ GRID_RO_GVA = 0x0002_0000_8000         # 1 read-only page
 GRID_STACK_TOP = 0x0000_7FFF_F000
 GRID_KCODE_GVA = 0xFFFF_8000_4000_0000  # the grid code again, high half
 GRID_KDATA_GVA = 0xFFFF_8000_5000_0000  # 2 writable high-half pages
+
+# phase 10: the device mutation engine in megachunk windows
+WINDOW = ["--mutator", "devmangle", "--megachunk", "8"]
+WCAMPAIGN = CAMPAIGN + WINDOW
 
 KCAMPAIGN = ["campaign", "--name", "demo_kernel", "--fused-step", "on",
              "--lanes", str(LANES), "--runs", str(RUNS), "--limit",
@@ -439,7 +456,8 @@ def kernel_record(name, source, replaces) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": 0, "max_abs_err": None,
             "ms": None, "plain_ms": None, "bound_ms": None,
-            "bound_by": "bytes", "library_ms": None}
+            "bound_by": "bytes", "library_ms": None,
+            "launch_floor_ms": None}
 
 
 def phase_build(record: dict) -> str:
@@ -473,9 +491,10 @@ def phase_build(record: dict) -> str:
     return card
 
 
-def phase_probe(dev, k2: dict) -> None:
+def phase_probe(dev, k1: dict, k2: dict) -> None:
     import torch
 
+    from wtf_tpu_torch.csrc import build
     from wtf_tpu_torch.interp import pstep
 
     x = torch.tensor([41], dtype=torch.int32, device=dev)
@@ -485,7 +504,20 @@ def phase_probe(dev, k2: dict) -> None:
     k2["ms"] = cuda_ms(lambda: pstep.probe_kernel(x), 20)
     k2["plain_ms"] = cuda_ms(lambda: x + 1, 20)
     k2["bound_ms"] = 8 / HBM_BYTES_PER_S * 1e3
-    print(f"phase 2: probe kernel ok ({k2['ms']:.4f} ms per launch)")
+    # the launch floor: an empty kernel from the same source, so no
+    # launch (K2's above all) reads as faster than the card can start one
+    lib = build.library("probe")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def empty():
+        err = lib.wtf_empty(stream)
+        check(err == 0, f"empty kernel launch failed: cuda error {err}")
+
+    empty()
+    floor = cuda_ms(empty, 20)
+    k1["launch_floor_ms"] = k2["launch_floor_ms"] = floor
+    print(f"phase 2: probe kernel ok ({k2['ms']:.4f} ms per launch); "
+          f"launch floor (empty kernel) {floor:.4f} ms")
 
 
 def phase_random(dev, k1: dict) -> None:
@@ -569,7 +601,6 @@ def device_busy(prof) -> tuple:
 
 def phase_campaign(k1: dict, k2: dict, record: dict) -> None:
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from wtf_tpu_torch import cli
     from wtf_tpu_torch.interp import pstep
@@ -666,54 +697,75 @@ def phase_campaign(k1: dict, k2: dict, record: dict) -> None:
     del loop, backend, runner, view, tab, img, m0, mk, mp
     torch.cuda.empty_cache()
 
-    # the same campaign under the profiler: what the card itself was busy
-    # with (the first run stays unprofiled, so its wall is the user's)
+    profiled_rerun("phase 5", CAMPAIGN, record["campaign"],
+                   launches["fused_step"], wall)
+
+
+def profiled_rerun(phase: str, argv: list, rec: dict, k1_launches: int,
+                   wall: float) -> None:
+    """The same campaign again under torch.profiler: what the card itself
+    was busy with (the first run stays unprofiled, so its wall is the
+    user's) and so the host's share of that wall."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from wtf_tpu_torch import cli
+
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        loop = cli.campaign(cli.build_parser().parse_args(CAMPAIGN))
+        loop = cli.campaign(cli.build_parser().parse_args(argv))
         torch.cuda.synchronize()
     wall_prof = time.perf_counter() - t0
-    check(loop.stats.testcases == record["campaign"]["testcases"],
+    check(loop.stats.testcases == rec["testcases"],
           "the profiled campaign ran a different number of testcases")
     busy, per_kernel = device_busy(prof)
     check(busy > 0, "torch.profiler recorded no device activity")
     k1_n, k1_s = (sum(v[i] for name, v in per_kernel.items()
                       if "fused_step_kernel" in name)
                   for i in (0, 1))
-    check(k1_n == launches["fused_step"],
+    check(k1_n == k1_launches,
           f"the trace holds {k1_n} K1 launches, the campaign made "
-          f"{launches['fused_step']}")
+          f"{k1_launches}")
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])
     n_dev = sum(n for n, _ in per_kernel.values())
-    print(f"phase 5: profiled rerun ({wall_prof:.2f} s wall): card busy "
+    print(f"{phase}: profiled rerun ({wall_prof:.2f} s wall): card busy "
           f"{busy:.3f} s over {n_dev} kernels and copies = host share "
           f"{1 - busy / wall:.3f} of the unprofiled run's {wall:.2f} s; "
           f"K1 {k1_n} launches, {k1_s / k1_n * 1e3:.3f} ms mean; top by "
           f"device time: " + "; ".join(
               f"{name[:40]} x{n} {sec:.3f} s" for name, (n, sec) in top[:4]))
-    record["campaign"].update({
+    rec.update({
         "profiled_wall_s": wall_prof, "device_busy_s": busy,
         "host_share": 1 - busy / wall, "device_launches": n_dev,
         "k1_ms_mean_trace": k1_s / k1_n * 1e3,
         "top_device": [(name, n, sec) for name, (n, sec) in top[:20]]})
+    del loop
+    torch.cuda.empty_cache()
 
 
-def small_campaign(name: str, device: str, limit: int = 20000) -> tuple:
+def small_campaign(name: str, device: str, limit: int = 20000,
+                   extra: tuple = ()) -> tuple:
     """(corpus digests, crash names, cov bytes, edge bytes, statuses,
-    seconds) of a 64-lane, 256-run campaign at seed 5 on `device`."""
+    seconds) of a 64-lane, 256-run campaign at seed 5 on `device`
+    (`extra`: more campaign flags)."""
     from wtf_tpu_torch import cli
 
     a = cli.build_parser().parse_args(
         ["campaign", "--name", name, "--fused-step", "on", "--lanes", "64",
          "--runs", "256", "--limit", str(limit), "--max_len", "96",
-         "--seed", "5", "--device", device])
+         "--seed", "5", "--device", device, *extra])
     t0 = time.perf_counter()
     loop = cli.campaign(a)
+    return outcome(loop) + (time.perf_counter() - t0,)
+
+
+def outcome(loop) -> tuple:
+    """(corpus digests, crash names, cov bytes, edge bytes, statuses) of a
+    finished campaign."""
     b = loop.backend
     return (sorted(loop.corpus.digests), sorted(loop.crash_names),
             b._agg_cov.cpu().numpy().tobytes(),
-            b._agg_edge.cpu().numpy().tobytes(), dict(b.status_counts),
-            time.perf_counter() - t0)
+            b._agg_edge.cpu().numpy().tobytes(), dict(b.status_counts))
 
 
 def replay_runs(name: str, inputs: dict, device: str) -> list:
@@ -883,12 +935,142 @@ def phase_targets_card_vs_cpu(cpu) -> None:
               f"{card[5]:.1f} s, cpu {want[5]:.1f} s in a worker process)")
 
 
+def phase_window_campaign(k1: dict, k2: dict, record: dict) -> None:
+    import torch
+
+    from wtf_tpu_torch import cli
+    from wtf_tpu_torch.interp import pstep
+
+    a = cli.build_parser().parse_args(WCAMPAIGN)
+    torch.cuda.reset_peak_memory_stats()
+    for name in pstep.LAUNCHES:
+        pstep.LAUNCHES[name] = 0
+    t0 = time.perf_counter()
+    loop = cli.campaign(a)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(pstep.LAUNCHES)
+    in_use, peak = torch.cuda.memory_allocated(), \
+        torch.cuda.max_memory_allocated()
+    backend = loop.backend
+    reg = backend.registry
+    instr = reg.counter("device.instructions").value
+    fused = reg.counter("device.fused_steps").value
+    occupancy = fused / max(instr, 1)
+    windows = reg.counter("megachunk.windows").value
+    rounds = reg.counter("device.fused_window_rounds").value
+    sweeps = reg.counter("device.fused_window_xla_steps").value
+    parks = (reg.counter("device.fused_park_subset").value,
+             reg.counter("device.fused_park_mem").value)
+    batches = backend.stats["batches"]
+    counts = backend.status_counts
+    terminal = {"OK", "CRASH", "TIMEDOUT", "PAGE_FAULT", "OVERLAY_FULL",
+                "CR3_CHANGE", "DIVIDE_ERROR", "HARD_ERROR"}
+    check(launches["fused_step"] > 0, f"K1 never launched: {launches}")
+    check(launches["probe"] > 0, f"K2 never launched: {launches}")
+    check(windows > 0, "no megachunk window ran")
+    check(rounds > 0, "K1 never launched from a megachunk window")
+    check(occupancy >= 0.95, f"fused occupancy {occupancy:.4f} < 0.95")
+    check(set(counts) <= terminal
+          and sum(counts.values()) == loop.stats.testcases >= RUNS,
+          f"non-terminal lanes: {counts}")
+    check(reg.counter("runner.max_chunks_timeouts").value == 0,
+          "lanes revoked at max_chunks")
+    spans = reg.spans
+    span_s = {p: spans.seconds(p) for p in (
+        "mutate", "execute", "harvest", "restore", "execute/device",
+        "execute/device/overlay-restore", "execute/device/generate",
+        "execute/device/insert", "execute/device/fused-step",
+        "execute/device/device-step", "execute/device/merge",
+        "execute/fused-step", "execute/device-step",
+        "execute/service-pull", "execute/service-decode",
+        "execute/service-push", "execute/cov-readback",
+        "restore/overlay-restore")}
+    print(f"phase 10: window campaign {loop.stats.testcases} testcases in "
+          f"{wall:.2f} s = {loop.stats.testcases / wall:.1f} execs/s; "
+          f"{windows} windows, {batches / windows:.2f} batches and "
+          f"{rounds / windows:.1f} window K1 launches per window; K1 "
+          f"launches {launches['fused_step']} ({rounds} in windows, "
+          f"{launches['fused_step'] / batches:.1f} per batch), K2 "
+          f"{launches['probe']}; window precise sweeps {sweeps}; K1 parks "
+          f"subset/mem {parks[0]}/{parks[1]}; fused "
+          f"occupancy {occupancy:.4f} ({fused}/{instr}); device bytes in "
+          f"use {in_use} (peak {peak}); statuses {counts}; crashes "
+          f"{loop.stats.crashes}, corpus {len(loop.corpus)}; spans "
+          + ", ".join(f"{k} {v:.2f}" for k, v in span_s.items()))
+    k1["launches_by_path"]["demo_tlv window"] = launches["fused_step"]
+    k2["launches_by_path"]["demo_tlv window"] = launches["probe"]
+    record["window_campaign"] = {
+        "testcases": loop.stats.testcases, "wall_s": wall,
+        "execs_per_s": loop.stats.testcases / wall,
+        "k1_launches": launches["fused_step"], "k1_window_rounds": rounds,
+        "windows": windows, "batches": batches,
+        "window_xla_steps": sweeps, "parks_subset_mem": parks,
+        "occupancy": occupancy,
+        "instructions": instr, "spans": span_s, "bytes_in_use": in_use,
+        "peak_bytes": peak, "statuses": counts,
+        "crashes": loop.stats.crashes}
+    window_out = outcome(loop)
+    backend.restore()
+    del loop, backend
+    torch.cuda.empty_cache()
+
+    # the same devmangle campaign batch at a time (--megachunk 0), in
+    # turns with the window on this card (window, batch, batch, window):
+    # the window's own effect at full width, and the same results
+    walls = {"8": [wall], "0": []}
+    for mc in ("0", "0", "8"):
+        t0 = time.perf_counter()
+        loop = cli.campaign(cli.build_parser().parse_args(
+            CAMPAIGN + ["--mutator", "devmangle", "--megachunk", mc]))
+        torch.cuda.synchronize()
+        walls[mc].append(time.perf_counter() - t0)
+        check(outcome(loop) == window_out,
+              f"--megachunk {mc} differs from the window campaign at full "
+              f"width")
+        if mc == "0":
+            spans0 = {p: loop.registry.spans.seconds(p) for p in (
+                "mutate", "execute", "harvest", "restore", "execute/insert",
+                "execute/fused-step", "execute/device-step",
+                "execute/service-decode", "execute/cov-readback")}
+        loop.backend.restore()
+        del loop
+        torch.cuda.empty_cache()
+    print(f"phase 10: in turns (window, batch, batch, window), equal corpus, "
+          f"crashes and cov/edge bytes: execs/s --megachunk 8 "
+          f"{[round(RUNS / w, 1) for w in walls['8']]}, --megachunk 0 "
+          f"{[round(RUNS / w, 1) for w in walls['0']]}; --megachunk 0 spans "
+          + ", ".join(f"{k} {v:.2f}" for k, v in spans0.items()))
+    record["window_campaign"]["turns_wall_s"] = walls
+    record["window_campaign"]["megachunk0_spans"] = spans0
+    profiled_rerun("phase 10", WCAMPAIGN, record["window_campaign"],
+                   launches["fused_step"], wall)
+
+
+def phase_window_card_vs_cpu(cpu) -> None:
+    card = small_campaign("demo_tlv", "cuda", extra=tuple(WINDOW))
+    want = cpu["demo_tlv window"].result()
+    check(all(card[i] == want[i] for i in range(4)),
+          "64-lane window campaign differs between card and cpu")
+    batch = small_campaign("demo_tlv", "cuda",
+                           extra=("--mutator", "devmangle"))
+    check(all(card[i] == batch[i] for i in range(4)),
+          "64-lane window campaign differs from --megachunk 0 on the card")
+    print(f"phase 11: 64-lane 256-run window campaign, card == cpu == card "
+          f"--megachunk 0: {len(card[0])} corpus digests, {len(card[1])} "
+          f"crash names, equal cov/edge bytes (card {card[5]:.1f} s, "
+          f"--megachunk 0 {batch[5]:.1f} s, cpu {want[5]:.1f} s in a worker "
+          f"process)")
+
+
 def start_cpu_references(pool) -> dict:
-    """The CPU sides of phases 6 and 9, started together in worker
+    """The CPU sides of phases 6, 9 and 11, started together in worker
     processes once the card's timed phases are done."""
     import os
 
     jobs = {"demo_tlv": (small_campaign, "demo_tlv", "cpu"),
+            "demo_tlv window": (small_campaign, "demo_tlv", "cpu", 20000,
+                                tuple(WINDOW)),
             "demo_kernel": (small_campaign, "demo_kernel", "cpu", 100000),
             "demo_usermode": (small_campaign, "demo_usermode", "cpu",
                               100000),
@@ -923,20 +1105,22 @@ def main(argv=None) -> int:
     k2 = kernel_record("probe", "wtf_tpu_torch/csrc/probe.cu",
                        "wtf_tpu/interp/pstep.py:144")
     card = phase_build(record)
-    phase_probe(dev, k2)
+    phase_probe(dev, k1, k2)
     phase_random(dev, k1)
     phase_run()
     phase_campaign(k1, k2, record)
     phase_step_sys(dev, record)
     phase_kernel_campaign(k1, k2, record)
-    # the CPU references of phases 6 and 9 run in worker processes, after
-    # every timed phase, while this process runs their card sides
+    phase_window_campaign(k1, k2, record)
+    # the CPU references of phases 6, 9 and 11 run in worker processes,
+    # after every timed phase, while this process runs their card sides
     with ProcessPoolExecutor(
-            max_workers=5, mp_context=multiprocessing.get_context(
+            max_workers=6, mp_context=multiprocessing.get_context(
                 "spawn")) as pool:
         cpu = start_cpu_references(pool)
         phase_card_vs_cpu(cpu)
         phase_targets_card_vs_cpu(cpu)
+        phase_window_card_vs_cpu(cpu)
 
     kernels = {"kernels": [k1, k2]}
     if args.out is not None:

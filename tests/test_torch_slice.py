@@ -131,6 +131,7 @@ def test_package_imports_no_jax():
             "    if not m.name.endswith('__main__'):\n"
             "        importlib.import_module(m.name)\n"
             "import wtf_tpu_torch.cli, wtf_tpu_torch.backend.gpu\n"
+            "import wtf_tpu_torch.devmut, wtf_tpu_torch.fuzz.megachunk\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'wtf_tpu.')) or m == 'wtf_tpu']\n"
             "assert not bad, bad\n"

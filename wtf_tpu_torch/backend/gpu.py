@@ -13,6 +13,10 @@ Coverage: per-lane device bitmaps merge into device-resident aggregate
 bitmaps after each batch (meshrun/reduce.py); timeout and OVERLAY_FULL
 lanes are excluded from the merge, as the reference client revokes a
 timeout's coverage (client.cc:122-125).
+
+Device-generated batches (wtf_tpu_torch/devmut) run through
+`run_batch_device`, and whole multi-batch windows through
+`run_megachunk` (wtf_tpu_torch/fuzz/megachunk.py).
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from wtf_tpu_torch.backend.base import Backend, BreakpointHandler
 from wtf_tpu_torch.core.results import (
     Cr3Change, Crash, Ok, OverlayFull, StatusCode, TestcaseResult, Timedout,
 )
+from wtf_tpu_torch.interp.machine import CTR_INSTR
 from wtf_tpu_torch.interp.runner import HostView, Runner
 from wtf_tpu_torch.meshrun.reduce import merge_coverage
 from wtf_tpu_torch.snapshot.loader import Snapshot
@@ -126,6 +131,183 @@ class GpuBackend(Backend):
         return [self._map_result(lane, statuses[lane])
                 for lane in range(n_active)]
 
+    def run_batch_device(self, mutator, target) -> List[TestcaseResult]:
+        """One batch whose testcases were generated on the device
+        (wtf_tpu_torch/devmut): insertion is one batched overlay/register
+        update (Runner.device_insert) instead of per-lane
+        target.insert_testcase calls.  `mutator` is a bound
+        DevMangleMutator whose take_batch() already ran; every lane is
+        active."""
+        words, lens = mutator.current_batch()
+        return self.run_batch_words(words, lens, mutator.pfns, mutator.spec)
+
+    def run_batch_words(self, words, lens, pfns,
+                        spec) -> List[TestcaseResult]:
+        """The device-generated batch path: `words` (int32[L, W]) /
+        `lens` (int32[L]) land in every lane's overlay through
+        Runner.device_insert and the batch runs with every lane active.
+        `spec` is the target's DeviceInsertSpec, `pfns` the input region's
+        page frames."""
+        runner = self.runner
+        runner.limit = self.limit
+        self._lane_results = {}
+        spans = self.registry.spans
+        with spans.span("insert"):
+            # host state staged through the backend view (init-time
+            # register/memory writes) lands first, so the testcase wins
+            # any overlap
+            if self._view is not None:
+                runner.push(self._view)
+                self._view = None
+            with spans.span("device") as sp:
+                runner.device_insert(words, lens, pfns, spec.gva,
+                                     spec.len_gpr, spec.ptr_gpr)
+                sp.fence(runner.machine.status)
+        statuses = runner.run(bp_handler=self._dispatch_bp)
+        self._finish_batch(statuses, self.n_lanes)
+        return [self._map_result(lane, statuses[lane])
+                for lane in range(self.n_lanes)]
+
+    def run_megachunk(self, mutator, target, max_batches: int,
+                      n_batches: int):
+        """ONE megachunk window (wtf_tpu_torch/fuzz/megachunk.py): up to
+        `n_batches` whole fuzz batches — restore, devmut generation,
+        insert, the quiesce, the finish-breakpoint rewrite and the
+        coverage merge — on the device; the host touches the window only
+        for the status pull and the crash/new-coverage harvest.
+        `max_batches` sizes the window's per-batch outputs; `n_batches
+        <= max_batches` is this window's budget (runs-budget capping).
+
+        Returns a list of (results, new_flags, datas) per PROCESSED
+        batch, in batch order: `results` the per-lane TestcaseResults,
+        `new_flags` the prefix-credit new-coverage flags, `datas` the
+        fetched bytes of crash/new-coverage lanes.  A batch that needed
+        host servicing is finished through the ordinary Runner.run loop
+        before being returned.
+
+        There is no speculative launch of the next window: the machine
+        is updated in place, so (as for the JAX package's donated
+        window) a dropped speculation would have nothing to fall back
+        to."""
+        runner = self.runner
+        if not self.limit:
+            raise ValueError(
+                "megachunk windows need a nonzero --limit: the window's "
+                "quiesce stops on the instruction budget")
+        runner.limit = self.limit
+        self._lane_results = {}
+        # host state staged through the backend view (init-time target
+        # writes) must land BEFORE the window, like run_batch_words
+        if self._view is not None:
+            runner.push(self._view)
+            self._view = None
+        reg = self.registry
+        reg.counter("megachunk.windows").inc()
+        out = self._dispatch_window(mutator, max_batches, n_batches)
+        self._agg_cov, self._agg_edge = out.agg_cov, out.agg_edge
+        self._last_new_words = out.new_words.cpu().numpy().view(np.uint32)
+        b_done, incomplete = out.batches, out.incomplete
+        statuses = out.statuses[:b_done].cpu().numpy()
+        flags = out.new_flags[:b_done].cpu().numpy()
+        ctr_sums = out.ctr_sums[:b_done].cpu().numpy().view(np.uint64)
+        # [precise sweeps, K1 launches] over the window; each K1 launch
+        # updates the 13 machine/overlay planes in place instead of
+        # copying them through (the JAX window's donation leg)
+        sweeps, launches = out.engine_rounds
+        reg.counter("device.fused_window_xla_steps").inc(sweeps)
+        if launches:
+            reg.counter("device.fused_window_rounds").inc(launches)
+            reg.counter("device.fused_window_bytes_saved").inc(
+                launches * self._fused_alias_bytes())
+        processed = b_done + (1 if incomplete else 0)
+        mutator.consume_window(processed)
+
+        batches = []
+        for b in range(b_done):
+            row, frow = statuses[b], flags[b]
+            runner.fold_counter_totals(ctr_sums[b])
+            if b == b_done - 1 and not incomplete:
+                # the live machine IS this batch's final state (the
+                # window stops on any non-clean terminal), so crash
+                # naming reads it exactly like run_batch's path
+                results = [self._map_result(lane, row[lane])
+                           for lane in range(self.n_lanes)]
+            else:
+                # interior batches are clean by the stop rule
+                results = [self._result_from_fields(
+                    StatusCode(int(row[lane])), 0, 0, 0, "")
+                    for lane in range(self.n_lanes)]
+            self._count_statuses(row)
+            snap = out.cur if b == processed - 1 else out.prev
+            datas = {}
+            wanted = [lane for lane in range(self.n_lanes)
+                      if frow[lane] or isinstance(results[lane], Crash)]
+            if wanted:
+                mutator.set_current(snap.words, snap.lens)
+                datas = mutator.fetch(wanted)
+            self._new_lane = frow
+            self.stats["batches"] += 1
+            self.stats["testcases"] += self.n_lanes
+            self.stats["instructions"] += int(ctr_sums[b][CTR_INSTR])
+            batches.append((results, frow, datas))
+
+        if incomplete:
+            # finish the in-flight batch through the ordinary servicing
+            # loop (decode/SMC/oracle/breakpoints), then account it the
+            # host way — this IS the batch-at-a-time path
+            statuses_fin = runner.run(bp_handler=self._dispatch_bp)
+            self._finish_batch(statuses_fin, self.n_lanes)
+            results = [self._map_result(lane, statuses_fin[lane])
+                       for lane in range(self.n_lanes)]
+            frow = np.asarray(self._new_lane)
+            mutator.set_current(out.cur.words, out.cur.lens)
+            wanted = [lane for lane in range(self.n_lanes)
+                      if frow[lane] or isinstance(results[lane], Crash)]
+            datas = mutator.fetch(wanted) if wanted else {}
+            batches.append((results, frow, datas))
+        return batches
+
+    def _dispatch_window(self, mutator, max_batches: int, n_batches: int):
+        """Run one window on the live machine and aggregates."""
+        from wtf_tpu_torch.fuzz.megachunk import NO_FINISH
+
+        runner = self.runner
+        spec = mutator.spec
+        finish = spec.finish_gva if spec.finish_gva is not None \
+            else NO_FINISH
+        fn = runner.megachunk_callable(max_batches, spec.len_gpr,
+                                       spec.ptr_gpr, mutator.rounds)
+        slab_first, slab_rest = mutator.window_slabs()
+        seeds = mutator.window_seeds(max_batches)
+        slab_first, slab_rest, seeds = runner.megachunk_place(
+            slab_first, slab_rest, seeds)
+        pfns = torch.tensor(mutator.pfns, dtype=torch.int32,
+                            device=runner.device)
+        spans = self.registry.spans
+        with spans.span("device") as sp:
+            out = fn(runner.device_tab(), runner.image, runner.machine,
+                     runner.template, slab_first, slab_rest, seeds, pfns,
+                     spec.gva, finish, self.limit, n_batches,
+                     self._agg_cov, self._agg_edge, spans)
+            sp.fence(out.agg_cov)
+        return out
+
+    def _fused_alias_bytes(self) -> int:
+        """Bytes of the 13 machine/overlay planes the fused kernel updates
+        in place — the per-launch copy-through that in-place planes
+        avoid, dominated by the `[lanes, slots, words]` overlay data."""
+        m = self.runner.machine
+        ov = m.overlay
+        planes = (m.gpr, m.rip, m.rflags, m.status, m.icount, m.bp_skip,
+                  m.ctr, m.cov, m.edge, ov.pfn, ov.data, ov.valid,
+                  ov.count)
+        return int(sum(t.numel() * t.element_size() for t in planes))
+
+    def _count_statuses(self, statuses) -> None:
+        for code in statuses:
+            name = StatusCode(int(code)).name
+            self.status_counts[name] = self.status_counts.get(name, 0) + 1
+
     def _finish_batch(self, statuses, n_active: int) -> None:
         """Post-run accounting: the coverage merge on the device (timeouts
         and OVERLAY_FULL lanes excluded — the latter ran on truncated
@@ -137,9 +319,7 @@ class GpuBackend(Backend):
                     & (statuses != int(StatusCode.OVERLAY_FULL))
                     & (np.arange(self.n_lanes) < n_active))
             self._merge(m, keep)
-            for code in statuses[:n_active]:
-                name = StatusCode(int(code)).name
-                self.status_counts[name] = self.status_counts.get(name, 0) + 1
+            self._count_statuses(statuses[:n_active])
             self.stats["batches"] += 1
             self.stats["testcases"] += n_active
             self.stats["instructions"] += int(

@@ -6,7 +6,9 @@ plus `--device`:
 
   run       replay an input file or directory on the device batch (lane 0),
             optionally writing a rip/cov/tenet trace through the oracle
-  campaign  the single-process fuzz loop over one device batch
+  campaign  the single-process fuzz loop over one device batch, with the
+            host mutators or the device one (--mutator devmangle), batch
+            at a time or in multi-batch windows (--megachunk N)
 
 Both run on a CUDA device by default (`--device cuda`) and raise when
 there is none; `--device cpu` runs the plain PyTorch versions of the
@@ -78,6 +80,23 @@ def build_parser() -> argparse.ArgumentParser:
     camp.add_argument("--max_len", type=int, default=1024 * 1024)
     camp.add_argument("--seed", type=int, default=0)
     camp.add_argument("--lanes", type=int, default=64)
+    camp.add_argument("--mutator", choices=("auto", "devmangle"),
+                      default="auto",
+                      help="mutation engine: auto = the target's custom "
+                           "mutator, else the host mangle engine. "
+                           "devmangle = the device-resident engine "
+                           "(wtf_tpu_torch/devmut): the whole batch is "
+                           "generated on the device from the corpus slab "
+                           "(a target with a DeviceInsertSpec only)")
+    camp.add_argument("--megachunk", type=int, default=0, metavar="N",
+                      help="multi-batch windows (wtf_tpu_torch/fuzz/"
+                           "megachunk): fold up to N whole batches — "
+                           "restore, devmut generation, insert, the run "
+                           "to quiescence, the coverage merge — into one "
+                           "call that stays on the device, so per-batch "
+                           "host work collapses to the status pull and "
+                           "find harvest.  Needs --mutator devmangle and "
+                           "a nonzero --limit; 0 = off")
     return parser
 
 
@@ -168,7 +187,7 @@ def campaign(args):
     the fuzz loop for --runs testcases.  Returns the FuzzLoop."""
     from wtf_tpu_torch.fuzz.corpus import Corpus
     from wtf_tpu_torch.fuzz.loop import FuzzLoop
-    from wtf_tpu_torch.fuzz.mutator import MangleMutator
+    from wtf_tpu_torch.fuzz.mutator import MangleMutator, create_mutator
 
     if args.runs <= 0:
         raise SystemExit("--runs must be > 0 (the minset mode of --runs 0 "
@@ -182,11 +201,15 @@ def campaign(args):
                                  outputs_dir=paths.outputs)
     else:
         corpus = Corpus(outputs_dir=paths.outputs, rng=rng)
-    mutator = (target.create_mutator(rng, args.max_len)
-               if target.create_mutator is not None
-               else MangleMutator(rng, args.max_len))
+    if args.mutator == "devmangle":
+        mutator = create_mutator("devmangle", rng, args.max_len)
+    elif target.create_mutator is not None:
+        mutator = target.create_mutator(rng, args.max_len)
+    else:
+        mutator = MangleMutator(rng, args.max_len)
     loop = FuzzLoop(backend, target, mutator, corpus,
-                    crashes_dir=paths.crashes, registry=registry)
+                    crashes_dir=paths.crashes, registry=registry,
+                    megachunk=args.megachunk)
     loop.fuzz(runs=args.runs, print_stats=True)
     return loop
 

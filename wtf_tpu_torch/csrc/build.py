@@ -41,7 +41,8 @@ BUILD_SECONDS: Dict[str, float] = {}
 # each library's C functions: every pointer (and the stream) as c_void_p,
 # ints as c_int
 _SIGNATURES = {
-    "probe": [("wtf_probe", [ctypes.c_void_p] * 3)],
+    "probe": [("wtf_probe", [ctypes.c_void_p] * 3),
+              ("wtf_empty", [ctypes.c_void_p])],
     "fused_step": [
         ("wtf_fused_step",
          [ctypes.c_void_p, ctypes.c_int,            # hash

@@ -1,9 +1,10 @@
 """The standalone fuzz loop: mutate -> batch-execute -> harvest.
 
-Copied from wtf_tpu/fuzz/loop.py and cut to the host-mutation batch path
-this slice carries: the device mutation engine, megachunk windows,
-supervision, checkpoint/resume, the fleet store, resharding, the minset
-mode and the --xprof-dir profiler window are not part of it.
+Copied from wtf_tpu/fuzz/loop.py and cut to the paths the port carries:
+the host-mutation batch, the device-mutation batch (wtf_tpu_torch/devmut)
+and the megachunk window (wtf_tpu_torch/fuzz/megachunk.py).  Supervision,
+checkpoint/resume, the fleet store, resharding, the minset mode and the
+--xprof-dir profiler window are not part of it.
 
 This is the single-process campaign loop — the reference needs a master
 process + N client processes even on one machine (README.md:34-110); here
@@ -148,6 +149,7 @@ class FuzzLoop:
         stats_every: float = 10.0,
         registry: Optional[Registry] = None,
         events=None,
+        megachunk: int = 0,
     ):
         self.backend = backend
         self.target = target
@@ -161,6 +163,34 @@ class FuzzLoop:
         # under this loop's execute phase and one dump carries everything
         self.registry, self.events = telemetry.resolve(
             backend, registry, events)
+        # device-resident mutation engine (wtf_tpu_torch/devmut): the
+        # whole mutate->insert phase moves onto the device and batches run
+        # through _run_one_batch_device.  bind() raises early for
+        # backends or targets that can't take the device path.
+        self.mutate_on_device = bool(getattr(mutator, "is_device", False))
+        if self.mutate_on_device:
+            mutator.bind(backend, target, registry=self.registry,
+                         events=self.events)
+            mutator.seed_from(corpus)
+        # multi-batch windows (wtf_tpu_torch/fuzz/megachunk.py):
+        # generation + insert + the quiesce + the coverage merge + restore
+        # over up to `megachunk` batches per call; host work per batch
+        # collapses to the status pull and the crash/new-coverage harvest
+        self.megachunk = int(megachunk or 0)
+        if self.megachunk:
+            if not self.mutate_on_device:
+                raise ValueError(
+                    "--megachunk needs the device mutation engine "
+                    "(--mutator devmangle): generation must live on the "
+                    "device for the window to fold it in")
+            if not hasattr(backend, "run_megachunk"):
+                raise ValueError(
+                    "--megachunk requires the batched GpuBackend")
+            if not getattr(backend, "limit", 0):
+                raise ValueError(
+                    "--megachunk needs a nonzero --limit: the window's "
+                    "quiesce stops on the instruction budget")
+        self._runs_budget = 0
         self.stats = CampaignStats(self.registry)
         self.stats_every = stats_every
         self.crash_names = set()
@@ -192,12 +222,16 @@ class FuzzLoop:
         return 1
 
     def _harvest_lane(self, lane: int, data: bytes, result: TestcaseResult,
-                      requeue: bool = False) -> int:
-        """Per-lane harvest: result accounting (+ optional overlay-full
+                      requeue: bool = False, found_new=None) -> int:
+        """The one per-lane harvest body shared by the host, device and
+        megachunk batch paths: result accounting (+ optional overlay-full
         requeue) and the new-coverage -> corpus/mutator/event chain.
-        Returns 1 for a crash."""
+        `found_new` overrides the backend's last-batch flag for callers
+        harvesting several batches at once (the megachunk window's
+        per-batch flag rows).  Returns 1 for a crash."""
         crashes = self._account(data, result, requeue=requeue, lane=lane)
-        if self.backend.lane_found_new_coverage(lane):
+        if (self.backend.lane_found_new_coverage(lane)
+                if found_new is None else found_new):
             self.stats.new_coverage += 1
             if self.corpus.add(data):
                 self.mutator.on_new_coverage(data)
@@ -217,7 +251,13 @@ class FuzzLoop:
             self.backend.restore()
 
     def run_one_batch(self) -> int:
-        """Mutate, execute and harvest one batch; returns its crashes."""
+        """Mutate, execute and harvest one batch; returns its crashes (for
+        a megachunk window: the whole window's, and the window's extra
+        completed batches advance `batches_done` here)."""
+        if self.mutate_on_device:
+            if self.megachunk:
+                return self._run_megachunk_window()
+            return self._run_one_batch_device()
         spans = self.registry.spans
         with spans.span("mutate"):
             requeued, self._requeue = \
@@ -241,6 +281,82 @@ class FuzzLoop:
                                               requeue=True)
         self._emit_timeouts(timeouts_before)
         self._restore_batch()
+        return crashes
+
+    def _run_one_batch_device(self) -> int:
+        """The devmangle batch: generation and insertion are device work,
+        so `mutate`'s host share is launch overhead and the device wait
+        sits under the nested `mutate/device` span.  Double-buffered:
+        batch N+1 is generated at the top of N's harvest, before N's
+        finds enter the slab (it samples the slab as of N-1's finds — the
+        one-batch lag of a pipelined generator).  Host code pulls only
+        the lanes the harvest wants (crashes, new coverage); overlay-full
+        requeue does not apply — the stream has no host bytes to
+        requeue."""
+        spans = self.registry.spans
+        with spans.span("mutate"):
+            with spans.span("device") as sp:
+                _, lens = self.mutator.take_batch()
+                sp.fence(lens)
+        with spans.span("execute"):
+            results = self.backend.run_batch_device(self.mutator,
+                                                    self.target)
+        crashes = 0
+        timeouts_before = self.stats.timeouts
+        with spans.span("harvest"):
+            # double buffer: batch N+1 generates before N's finds land
+            self.mutator.prelaunch()
+            wanted = [lane for lane, result in enumerate(results)
+                      if self.backend.lane_found_new_coverage(lane)
+                      or isinstance(result, Crash)]
+            datas = self.mutator.fetch(wanted)
+            for lane, result in enumerate(results):
+                crashes += self._harvest_lane(lane, datas.get(lane, b""),
+                                              result)
+        self._emit_timeouts(timeouts_before)
+        self._restore_batch()
+        return crashes
+
+    def _run_megachunk_window(self) -> int:
+        """One megachunk window: up to `self.megachunk` whole batches in
+        one backend call (restore/mutate/insert/execute/merge on the
+        device), then a host harvest of just the batches' finds.  The
+        window is capped by the runs budget."""
+        spans = self.registry.spans
+        # a batch prelaunched by the batch-at-a-time path is dropped and
+        # the cursor rewound, so the window regenerates that stream index
+        self.mutator.cancel_pending()
+        window = self.megachunk
+        if self._runs_budget:
+            remaining = self._runs_budget - self.stats.testcases
+            window = min(window, max(1, -(-int(remaining)
+                                         // self.batch_size)))
+        with spans.span("execute"):
+            batches = self.backend.run_megachunk(
+                self.mutator, self.target, self.megachunk, window)
+        crashes = 0
+        timeouts_before = self.stats.timeouts
+        with spans.span("harvest"):
+            for j, (results, flags, datas) in enumerate(batches):
+                if j == len(batches) - 1:
+                    # pin the NEXT window's entitled slab view BEFORE the
+                    # final batch's finds enter the corpus — the
+                    # batch-at-a-time prelaunch samples batch k+1's slab
+                    # at exactly this point of batch k's harvest
+                    self.mutator.snapshot_entitled_slab()
+                for lane, result in enumerate(results):
+                    crashes += self._harvest_lane(
+                        lane, datas.get(lane, b""), result,
+                        found_new=bool(flags[lane]))
+        self._emit_timeouts(timeouts_before)
+        with spans.span("restore"):
+            # the machine restore is each batch's first phase inside the
+            # window; only the target's host-side state rolls back here,
+            # once per window
+            self.target.restore()
+        # fuzz() advances batches_done by one per run_one_batch; fold this
+        # window's extra batches in
+        self.batches_done += len(batches) - 1
         return crashes
 
     def _save_crash(self, data: bytes, result: Crash,
@@ -304,6 +420,7 @@ class FuzzLoop:
     def fuzz(self, runs: int, print_stats: bool = False,
              stop_on_crash: bool = False) -> CampaignStats:
         """Run until `runs` testcases executed (0 = forever)."""
+        self._runs_budget = runs
         while runs == 0 or self.stats.testcases < runs:
             found = self.run_one_batch()
             self.batches_done += 1

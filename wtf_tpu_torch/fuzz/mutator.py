@@ -259,7 +259,18 @@ class TlvStructureMutator(Mutator):
 
 
 def create_mutator(name: str, rng: random.Random, max_len: int) -> Mutator:
-    """By-name factory (reference CLI picks libfuzzer vs honggfuzz)."""
+    """By-name factory (reference CLI picks libfuzzer vs honggfuzz).
+
+    "devmangle" is the device-resident engine (wtf_tpu_torch/devmut):
+    mangle semantics, but the whole batch is generated on the device from
+    the corpus slab — requires the GpuBackend and a target with a
+    DeviceInsertSpec.  Its determinism contract is the campaign seed, so
+    it draws one 64-bit seed from `rng` and never touches it again.
+    """
+    if name == "devmangle":
+        from wtf_tpu_torch.devmut.mutator import DevMangleMutator
+
+        return DevMangleMutator(seed=rng.getrandbits(64), max_len=max_len)
     engines = {
         "byte": ByteMutator,
         "mangle": MangleMutator,
@@ -267,5 +278,5 @@ def create_mutator(name: str, rng: random.Random, max_len: int) -> Mutator:
     }
     if name not in engines:
         raise ValueError(f"unknown mutator {name!r} "
-                         f"(known: {sorted(engines)})")
+                         f"(known: {sorted(engines) + ['devmangle']})")
     return engines[name](rng, max_len)

@@ -18,9 +18,11 @@ services whatever each lane reported in its status word:
 Host<->device traffic is batched: one pull of the small per-lane register
 tensors per service round (`HostView`), page reads on demand, and all
 memory writes buffered host-side and applied in one pass
-(`_apply_page_writes`) before the next chunk.  The supervisor, device
-decode, megachunk windows and tenancy of the JAX runner are not part of
-this slice.
+(`_apply_page_writes`) before the next chunk.  A device-generated batch
+(wtf_tpu_torch/devmut) lands through `device_insert_impl` instead, and the
+megachunk window (wtf_tpu_torch/fuzz/megachunk.py) is reached through
+`megachunk_callable`.  The supervisor, device decode and tenancy of the
+JAX runner are not part of the port yet.
 """
 
 from __future__ import annotations
@@ -42,7 +44,7 @@ from wtf_tpu_torch.cpu.interrupts import (
     VEC_DE, DeliveryFailed, deliver_exception, deliver_page_fault,
 )
 from wtf_tpu_torch.device import resolve_device
-from wtf_tpu_torch.interp import pstep
+from wtf_tpu_torch.interp import ints, pstep
 from wtf_tpu_torch.interp.machine import (
     CTR_DECODE_MISS, CTR_FUSED, CTR_INSTR, CTR_MEM_FAULT, CTR_PARK_MEM,
     CTR_PARK_SUBSET, Machine, machine_init, machine_restore,
@@ -446,6 +448,53 @@ def _apply_page_writes(m: Machine, items) -> None:
         int(StatusCode.OVERLAY_FULL), m.status).to(torch.int32)
 
 
+def device_insert_impl(m: Machine, words: torch.Tensor, lens: torch.Tensor,
+                       pfns: torch.Tensor, gva: int, len_gpr: int,
+                       ptr_gpr: int) -> None:
+    """Land a device-generated batch in every lane, in place: `words`
+    (int32[L, W], u32 bits) / `lens` (int32[L]) fill n_pages = len(pfns)
+    FRESH overlay rows per lane from the lane's current `count` (rows a
+    preceding host push claimed stay intact), and the target's length and
+    pointer registers are set.  The counterpart of the JAX package's
+    `device_insert_impl` (wtf_tpu/interp/runner.py:505-579), shared by
+    Runner.device_insert and the megachunk window.
+
+    Rows that already hold an insert-region pfn (a pushed host write into
+    the input region) are retired first, so the testcase wins — lookups
+    take the first matching row; the retired row leaks until restore.  A
+    lane without n_pages free rows gets none, is flagged in `overflow`,
+    and a RUNNING one becomes OVERLAY_FULL."""
+    ov = m.overlay
+    n_lanes, n_words = words.shape
+    n_pages = pfns.shape[0]
+    pad = n_pages * (PAGE_SIZE // 4) - n_words
+    if pad < 0:
+        raise ValueError("testcase words exceed the insert region")
+    w = torch.nn.functional.pad(words, (0, pad)) if pad else words
+    rows = w.contiguous().view(torch.int64).view(n_lanes, n_pages, -1)
+    capacity = ov.capacity
+    dead = (ov.pfn[:, :, None] == pfns[None, None, :]).any(-1)
+    pfn0 = torch.where(dead, -1, ov.pfn)
+    start = ov.count.long()
+    can = start + n_pages <= capacity
+    li = torch.arange(n_lanes, device=m.device)[:, None]
+    ridx = (start[:, None] + torch.arange(n_pages, device=m.device)
+            ).clamp(max=capacity - 1)
+    sel = can[:, None]
+    ov.data[li, ridx] = torch.where(sel[..., None], rows, ov.data[li, ridx])
+    ov.valid[li, ridx] = torch.where(sel[..., None], 1, ov.valid[li, ridx]
+                                     ).to(torch.uint8)
+    pfn0[li, ridx] = torch.where(sel, pfns.expand(n_lanes, n_pages),
+                                 pfn0[li, ridx])
+    ov.pfn.copy_(pfn0)
+    ov.count.copy_(torch.where(can, start + n_pages, start))
+    ov.overflow |= ~can
+    m.status.copy_(torch.where(~can & (m.status == int(StatusCode.RUNNING)),
+                               int(StatusCode.OVERLAY_FULL), m.status))
+    m.gpr[:, len_gpr] = lens.long()
+    m.gpr[:, ptr_gpr] = ints.s64(gva)
+
+
 class Runner:
     """Owns the device batch and the decode cache and drives the run loop.
     One Runner == one snapshot on one device == N lanes of it."""
@@ -547,6 +596,51 @@ class Runner:
 
     def view(self) -> HostView:
         return HostView(self)
+
+    # -- mutate-on-device seams (wtf_tpu_torch/devmut) ---------------------
+    def device_insert(self, words, lens, pfns, gva: int, len_gpr: int,
+                      ptr_gpr: int) -> None:
+        """Insert a device-generated batch without a host round trip:
+        `words` / `lens` (typically straight from devmut's generate) land
+        in fresh overlay rows of every lane and the target's ABI registers
+        are set (device_insert_impl).  Call after the push of any staged
+        host writes, so the testcase wins an overlap."""
+        n_pages = len(pfns)
+        if n_pages > self.machine.overlay.capacity:
+            raise ValueError(
+                f"device-insert region spans {n_pages} pages but lanes "
+                f"have only {self.machine.overlay.capacity} overlay slots "
+                f"— raise overlay_slots or shrink the mutator/spec max_len")
+        device_insert_impl(
+            self.machine, words, lens,
+            torch.tensor(pfns, dtype=torch.int32, device=self.device),
+            gva, len_gpr, ptr_gpr)
+
+    def devmut_generate(self, rounds: int, data, lens, cumw, seeds):
+        """One devmut batch generation on this runner's device (the seam
+        the device mutator drives)."""
+        from wtf_tpu_torch.devmut.engine import generate
+
+        return generate(data, lens, cumw, seeds, rounds)
+
+    def megachunk_callable(self, max_batches: int, len_gpr: int,
+                           ptr_gpr: int, rounds: int):
+        """The multi-batch window (wtf_tpu_torch/fuzz/megachunk.py) that
+        GpuBackend.run_megachunk calls.  `fused_enabled` is read HERE, at
+        call time, so the window's quiesce follows the runner's step
+        engine."""
+        from wtf_tpu_torch.fuzz.megachunk import make_megachunk
+
+        return make_megachunk(max_batches, len_gpr, ptr_gpr, rounds,
+                              deliver=self.deliver_exceptions,
+                              fused=bool(self.fused_enabled),
+                              fused_k=self.fused_k,
+                              fused_resume_steps=self.fused_resume_steps)
+
+    def megachunk_place(self, slab_first, slab_rest, seeds):
+        """Placement hook for one window's operands — identity on a
+        single device."""
+        return slab_first, slab_rest, seeds
 
     def push(self, view: HostView) -> None:
         """Apply a HostView's mutations (registers, buffered page writes,
