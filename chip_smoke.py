@@ -56,7 +56,8 @@ Phases (each prints one line; any failure exits non-zero):
      `campaign --name demo_tlv --mutator devmangle --megachunk 8
      --fused-step on` at phase 5's size, counts zeroed just before and
      read just after: K1 launched from the window, fused occupancy >=
-     0.95, windows > 0, every lane terminal; execs/s, spans, windows,
+     0.95, windows > 0, every lane terminal; execs/s, spans, windows
+     (and how many ended incomplete, finished by the host service),
      batches and K1 launches per window, the window's precise sweeps,
      device memory; the same campaign with --megachunk 0 twice and the
      window once more, in turns (equal results, execs/s of each, spans);
@@ -64,9 +65,26 @@ Phases (each prints one line; any failure exits non-zero):
  11. a 64-lane, 256-run window campaign at the same seed on the card and
      on the CPU, and on the card with --megachunk 0: equal corpus
      digests, crash names and coverage/edge bitmaps
+ 12. device decode's parts on the card against the CPU: `decode_window`
+     over the random encoding grid of tests/test_torch_devdec.py (and the
+     host decoder on its known rows), and `gather_windows` on 4096 lanes
+     of phase 3's guest (random overlays; instruction, page-crossing,
+     high-half, data and wild rips)
+ 13. the fourth main path, device decode in the windows: phase 10's
+     campaign with --device-decode, counts zeroed just before and read
+     just after: K1 launched (its launches from the service rounds'
+     re-quiesces counted apart), published entries > 0 with no
+     cross-check mismatch, and corpus digests, crash names and cov/edge
+     bytes equal to phase 10's; host decodes, zero-host windows against
+     windows, batches per window, service rounds and their seconds,
+     execs/s; the same campaign without and with --device-decode in
+     turns; then a profiled rerun for the host share
+ 14. a 64-lane, 256-run --device-decode window campaign on the card, on
+     the CPU and (phase 11) on the card without device decode: equal
+     results; and --megachunk 0 --device-decode on the card once
 
-Every phase always runs, at the sizes above.  Phases 6, 9 and 11 run last,
-after the timed phases: their CPU sides run in worker processes started
+Every phase always runs, at the sizes above.  Phases 6, 9, 11 and 14 run
+last, after the timed phases: their CPU sides run in worker processes started
 together (spawned, and joined before the script ends) while this process
 runs their card sides.  The card's nvidia-smi line
 comes before the last, the kernels' JSON record before that; the last
@@ -147,6 +165,8 @@ GRID_KDATA_GVA = 0xFFFF_8000_5000_0000  # 2 writable high-half pages
 # phase 10: the device mutation engine in megachunk windows
 WINDOW = ["--mutator", "devmangle", "--megachunk", "8"]
 WCAMPAIGN = CAMPAIGN + WINDOW
+# phase 13: decode-cache misses serviced on the card inside the windows
+DCAMPAIGN = WCAMPAIGN + ["--device-decode"]
 
 KCAMPAIGN = ["campaign", "--name", "demo_kernel", "--fused-step", "on",
              "--lanes", str(LANES), "--runs", str(RUNS), "--limit",
@@ -963,6 +983,8 @@ def phase_window_campaign(k1: dict, k2: dict, record: dict) -> None:
     parks = (reg.counter("device.fused_park_subset").value,
              reg.counter("device.fused_park_mem").value)
     batches = backend.stats["batches"]
+    incomplete = reg.counter("megachunk.incomplete_windows").value
+    decodes = backend.runner.stats["decodes"]
     counts = backend.status_counts
     terminal = {"OK", "CRASH", "TIMEDOUT", "PAGE_FAULT", "OVERLAY_FULL",
                 "CR3_CHANGE", "DIVIDE_ERROR", "HARD_ERROR"}
@@ -988,7 +1010,8 @@ def phase_window_campaign(k1: dict, k2: dict, record: dict) -> None:
         "restore/overlay-restore")}
     print(f"phase 10: window campaign {loop.stats.testcases} testcases in "
           f"{wall:.2f} s = {loop.stats.testcases / wall:.1f} execs/s; "
-          f"{windows} windows, {batches / windows:.2f} batches and "
+          f"{windows} windows ({incomplete} ended incomplete; host decodes "
+          f"{decodes}), {batches / windows:.2f} batches and "
           f"{rounds / windows:.1f} window K1 launches per window; K1 "
           f"launches {launches['fused_step']} ({rounds} in windows, "
           f"{launches['fused_step'] / batches:.1f} per batch), K2 "
@@ -1004,7 +1027,8 @@ def phase_window_campaign(k1: dict, k2: dict, record: dict) -> None:
         "testcases": loop.stats.testcases, "wall_s": wall,
         "execs_per_s": loop.stats.testcases / wall,
         "k1_launches": launches["fused_step"], "k1_window_rounds": rounds,
-        "windows": windows, "batches": batches,
+        "windows": windows, "incomplete_windows": incomplete,
+        "host_decodes": decodes, "batches": batches,
         "window_xla_steps": sweeps, "parks_subset_mem": parks,
         "occupancy": occupancy,
         "instructions": instr, "spans": span_s, "bytes_in_use": in_use,
@@ -1045,9 +1069,10 @@ def phase_window_campaign(k1: dict, k2: dict, record: dict) -> None:
     record["window_campaign"]["megachunk0_spans"] = spans0
     profiled_rerun("phase 10", WCAMPAIGN, record["window_campaign"],
                    launches["fused_step"], wall)
+    return window_out
 
 
-def phase_window_card_vs_cpu(cpu) -> None:
+def phase_window_card_vs_cpu(cpu) -> tuple:
     card = small_campaign("demo_tlv", "cuda", extra=tuple(WINDOW))
     want = cpu["demo_tlv window"].result()
     check(all(card[i] == want[i] for i in range(4)),
@@ -1061,16 +1086,284 @@ def phase_window_card_vs_cpu(cpu) -> None:
           f"crash names, equal cov/edge bytes (card {card[5]:.1f} s, "
           f"--megachunk 0 {batch[5]:.1f} s, cpu {want[5]:.1f} s in a worker "
           f"process)")
+    return card
+
+
+# phase 12's encoding grid (tests/test_torch_devdec.py::_decode_grid)
+DECODE_PREFIXES = [b"", b"\x66", b"\x67", b"\xf0", b"\xf2", b"\xf3", b"\x64",
+                   b"\x65", b"\x2e", b"\x66\xf3", b"\xf2\xf3", b"\x66\x67\x65",
+                   b"\xf0\x66", b"\x66\x66"]
+DECODE_REXES = [b"", b"\x40", b"\x48", b"\x41", b"\x44", b"\x42", b"\x4f",
+                b"\x45", b"\x4c"]
+
+
+def decode_grid():
+    """uint8[6048, 15]: opcode-map and ModRM skeletons with random prefix
+    and REX dressing, fully random windows, and prefix runs that
+    truncate (seed 0x77F)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0x77F)
+    cases = []
+    for m in (0, 1):
+        for op in range(256):
+            for _ in range(4):
+                digit, mod = rng.integers(8), rng.integers(4)
+                rm = int(rng.choice([0, 3, 4, 5]))
+                modrm = (int(mod) << 6) | (int(digit) << 3) | rm
+                pfx = DECODE_PREFIXES[rng.integers(len(DECODE_PREFIXES))]
+                rex = DECODE_REXES[rng.integers(len(DECODE_REXES))]
+                body = bytes([0x0F, op] if m else [op]) + bytes([modrm])
+                tail = rng.integers(0, 256, 14, dtype=np.uint8).tobytes()
+                cases.append((pfx + rex + body + tail)[:15])
+    for _ in range(3000):
+        cases.append(rng.integers(0, 256, 15, dtype=np.uint8).tobytes())
+    for _ in range(1000):
+        n = rng.integers(8, 15)
+        pfx = bytes(rng.choice(
+            [0x66, 0x67, 0xF0, 0xF2, 0xF3, 0x64, 0x2E], n))
+        body = rng.integers(0, 256, 15, dtype=np.uint8).tobytes()
+        cases.append((pfx + body)[:15])
+    return np.frombuffer(b"".join(cases), np.uint8).reshape(len(cases), 15)
+
+
+def phase_decode(dev, record: dict) -> None:
+    import numpy as np
+    import torch
+
+    from wtf_tpu_torch.cpu.decoder import decode
+    from wtf_tpu_torch.cpu.uops import INT_FIELDS
+    from wtf_tpu_torch.interp import devdec
+    from wtf_tpu_torch.mem.overlay import DirtyOverlay
+    from wtf_tpu_torch.mem.physmem import MemImage
+
+    wins = torch.from_numpy(decode_grid().copy())
+    got = devdec.decode_window(wins.to(dev))
+    want = devdec.decode_window(wins)
+    bad = [name for name, a, b in zip(got._fields, got, want)
+           if not torch.equal(a.cpu(), b)]
+    check(not bad, f"decode_window differs between card and cpu in {bad}")
+    known = want.known.numpy()
+    f, disp, imm = want.f.numpy(), want.disp.numpy(), want.imm.numpy()
+    for i in np.nonzero(known)[0]:
+        hu = decode(wins[i].numpy().tobytes(), 0)
+        check([int(v) for v in f[i]] == [int(getattr(hu, name))
+                                         for name in INT_FIELDS]
+              and int(disp[i]) & (1 << 64) - 1 == hu.disp & (1 << 64) - 1
+              and int(imm[i]) & (1 << 64) - 1 == hu.imm & (1 << 64) - 1,
+              f"decode_window differs from the host decoder on "
+              f"{wins[i].numpy().tobytes().hex()}")
+    wins_dev = wins.to(dev)
+    dec_ms = cuda_ms(lambda: devdec.decode_window(wins_dev), 5)
+
+    # gather_windows on phase 3's guest: random overlays, rips at
+    # instruction starts (a quarter high-half), across a page end, in the
+    # data pages (overlay words) and wild (unmapped, non-canonical)
+    tab, img, m, _ = grid_state(LANES, 5, dev)
+    g = torch.Generator(device=dev).manual_seed(12)
+    n = LANES
+
+    def rint(lo, hi):
+        return torch.randint(lo, hi, (n,), generator=g, device=dev)
+
+    kind = rint(0, 5)
+    rips = torch.where(kind == 1, GRID_CODE_GVA + 0x1000 - rint(1, 15),
+                       m.rip)
+    rips = torch.where(kind == 2, s64(GRID_KDATA_GVA) + rint(0, 0x2000),
+                       rips)
+    rips = torch.where(kind == 3, GRID_DATA_GVA + rint(0, 0x4000), rips)
+    rips = torch.where(kind == 4, rint(-2**63, 2**63 - 1), rips)
+    idx = torch.randperm(n, generator=g, device=dev)[:3000]
+    got = devdec.gather_windows(img, m.overlay, m.cr3, rips, idx)
+    ov = m.overlay
+    cpu_img = MemImage(img.pages.cpu(), img.frame_table.cpu(),
+                       img.tenant.cpu())
+    cpu_ov = DirtyOverlay(ov.pfn.cpu(), ov.data.cpu(), ov.valid.cpu(),
+                          ov.count.cpu(), ov.overflow.cpu())
+    want = devdec.gather_windows(cpu_img, cpu_ov, m.cr3.cpu(), rips.cpu(),
+                                 idx.cpu())
+    bad = [name for name, a, b in zip(("win", "fault", "pfn0", "pfn14"),
+                                      got, want)
+           if not torch.equal(a.cpu(), b)]
+    check(not bad, f"gather_windows differs between card and cpu in {bad}")
+    faults = int(want[1].sum())
+    gather_ms = cuda_ms(lambda: devdec.gather_windows(
+        img, m.overlay, m.cr3, rips, idx), 5)
+    print(f"phase 12: decode_window card == cpu on {len(wins)} windows "
+          f"({int(known.sum())} in the device subset, == the host decoder "
+          f"there), {dec_ms:.2f} ms on the card; gather_windows card == cpu "
+          f"on {len(idx)} of {n} lanes x {SLOTS} overlay rows ({faults} "
+          f"faulting), {gather_ms:.2f} ms on the card")
+    record["decode"] = {"windows": len(wins), "known": int(known.sum()),
+                        "decode_window_ms": dec_ms,
+                        "gather_lanes": len(idx), "gather_faults": faults,
+                        "gather_windows_ms": gather_ms}
+    del tab, img, m, ov, cpu_ov, got, want
+    torch.cuda.empty_cache()
+
+
+def phase_dd_window_campaign(k1: dict, k2: dict, record: dict,
+                             window_out: tuple) -> None:
+    import torch
+
+    from wtf_tpu_torch import cli
+    from wtf_tpu_torch.interp import pstep
+
+    a = cli.build_parser().parse_args(DCAMPAIGN)
+    torch.cuda.reset_peak_memory_stats()
+    for name in pstep.LAUNCHES:
+        pstep.LAUNCHES[name] = 0
+    t0 = time.perf_counter()
+    loop = cli.campaign(a)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(pstep.LAUNCHES)
+    in_use, peak = torch.cuda.memory_allocated(), \
+        torch.cuda.max_memory_allocated()
+    backend = loop.backend
+    reg = backend.registry
+    c = {name: reg.counter(name).value for name in (
+        "megachunk.windows", "megachunk.incomplete_windows",
+        "device.fused_window_rounds",
+        "device.fused_window_xla_steps", "devdec.serviced_lanes",
+        "devdec.published", "devdec.parked_lanes", "devdec.service_rounds",
+        "devdec.service_k1_rounds", "devdec.crosscheck_mismatches",
+        "devdec.zero_host_windows", "devdec.zero_host_batches",
+        "device.instructions", "device.fused_steps")}
+    occupancy = c["device.fused_steps"] / max(c["device.instructions"], 1)
+    windows, batches = c["megachunk.windows"], backend.stats["batches"]
+    decodes = backend.runner.stats["decodes"]
+    counts = backend.status_counts
+    terminal = {"OK", "CRASH", "TIMEDOUT", "PAGE_FAULT", "OVERLAY_FULL",
+                "CR3_CHANGE", "DIVIDE_ERROR", "HARD_ERROR"}
+    check(launches["fused_step"] > 0, f"K1 never launched: {launches}")
+    check(launches["probe"] > 0, f"K2 never launched: {launches}")
+    check(windows > 0, "no megachunk window ran")
+    check(c["device.fused_window_rounds"] > 0,
+          "K1 never launched from a megachunk window")
+    check(c["devdec.published"] > 0, "the device decoder published nothing")
+    check(c["devdec.crosscheck_mismatches"] == 0,
+          f"{c['devdec.crosscheck_mismatches']} device-published entries "
+          f"disagree with the host decoder")
+    check(occupancy >= 0.95, f"fused occupancy {occupancy:.4f} < 0.95")
+    check(set(counts) <= terminal
+          and sum(counts.values()) == loop.stats.testcases >= RUNS,
+          f"non-terminal lanes: {counts}")
+    check(outcome(loop) == window_out,
+          "the --device-decode window campaign differs from phase 10's")
+    spans = reg.spans
+    span_s = {p: spans.seconds(p) for p in (
+        "mutate", "execute", "harvest", "restore", "execute/device",
+        "execute/device/devdec-service", "execute/device/generate",
+        "execute/device/fused-step", "execute/device/device-step",
+        "execute/device/merge", "execute/fused-step",
+        "execute/device-step", "execute/service-decode",
+        "execute/cov-readback")}
+    rounds = c["devdec.service_rounds"]
+    print(f"phase 13: --device-decode window campaign "
+          f"{loop.stats.testcases} testcases in {wall:.2f} s = "
+          f"{loop.stats.testcases / wall:.1f} execs/s, equal corpus, "
+          f"crashes and cov/edge bytes to phase 10; {windows} windows, "
+          f"{c['devdec.zero_host_windows']} of them zero-host "
+          f"({c['devdec.zero_host_batches']} batches), "
+          f"{c['megachunk.incomplete_windows']} incomplete, "
+          f"{batches / windows:.2f} batches per window; host decodes "
+          f"{decodes}; service rounds {rounds} "
+          f"({span_s['execute/device/devdec-service']:.3f} s = "
+          f"{span_s['execute/device/devdec-service'] / max(rounds, 1):.3f} s "
+          f"per round), serviced lanes {c['devdec.serviced_lanes']}, "
+          f"published {c['devdec.published']}, parked "
+          f"{c['devdec.parked_lanes']}, cross-check mismatches "
+          f"{c['devdec.crosscheck_mismatches']}; K1 launches "
+          f"{launches['fused_step']} ({c['device.fused_window_rounds']} in "
+          f"windows, {c['devdec.service_k1_rounds']} of them in service "
+          f"re-quiesces), K2 {launches['probe']}; fused occupancy "
+          f"{occupancy:.4f}; device bytes in use {in_use} (peak {peak}); "
+          f"statuses {counts}; spans "
+          + ", ".join(f"{k} {v:.2f}" for k, v in span_s.items()))
+    k1["launches_by_path"]["demo_tlv dd window"] = launches["fused_step"]
+    k2["launches_by_path"]["demo_tlv dd window"] = launches["probe"]
+    record["dd_window_campaign"] = {
+        "testcases": loop.stats.testcases, "wall_s": wall,
+        "execs_per_s": loop.stats.testcases / wall,
+        "k1_launches": launches["fused_step"], "counters": c,
+        "batches": batches, "host_decodes": decodes, "occupancy": occupancy,
+        "spans": span_s, "bytes_in_use": in_use, "peak_bytes": peak,
+        "statuses": counts}
+    backend.restore()
+    del loop, backend
+    torch.cuda.empty_cache()
+
+    # in turns on this card (dd, window, window, dd): equal results
+    walls = {"dd": [wall], "window": []}
+    for argv, key in ((WCAMPAIGN, "window"), (WCAMPAIGN, "window"),
+                      (DCAMPAIGN, "dd")):
+        t0 = time.perf_counter()
+        loop = cli.campaign(cli.build_parser().parse_args(argv))
+        torch.cuda.synchronize()
+        walls[key].append(time.perf_counter() - t0)
+        check(outcome(loop) == window_out,
+              f"the {key} campaign of phase 13's turns differs")
+        loop.backend.restore()
+        del loop
+        torch.cuda.empty_cache()
+    print(f"phase 13: in turns (dd, window, window, dd), equal corpus, "
+          f"crashes and cov/edge bytes: execs/s --device-decode "
+          f"{[round(RUNS / w, 1) for w in walls['dd']]}, without "
+          f"{[round(RUNS / w, 1) for w in walls['window']]}")
+    record["dd_window_campaign"]["turns_wall_s"] = walls
+    profiled_rerun("phase 13", DCAMPAIGN, record["dd_window_campaign"],
+                   launches["fused_step"], wall)
+
+
+def phase_dd_card_vs_cpu(cpu, card_window: tuple) -> None:
+    from wtf_tpu_torch import cli
+
+    def run(extra):
+        a = cli.build_parser().parse_args(
+            ["campaign", "--name", "demo_tlv", "--fused-step", "on",
+             "--lanes", "64", "--runs", "256", "--limit", "20000",
+             "--max_len", "96", "--seed", "5", *extra])
+        loop = cli.campaign(a)
+        reg = loop.registry
+        return (outcome(loop), reg.counter("devdec.published").value,
+                reg.counter("devdec.crosscheck_mismatches").value,
+                loop.backend.runner.stats["decode_windows_gathered"])
+
+    card, published, mismatches, _ = run(WINDOW + ["--device-decode"])
+    want = cpu["demo_tlv window dd"].result()
+    check(all(card[i] == want[i] for i in range(4)),
+          "64-lane --device-decode window campaign differs between card "
+          "and cpu")
+    check(all(card[i] == card_window[i] for i in range(4)),
+          "64-lane --device-decode window campaign differs from the "
+          "window campaign without it")
+    check(published > 0 and mismatches == 0,
+          f"64-lane --device-decode: published {published}, cross-check "
+          f"mismatches {mismatches}")
+    batch, _, _, gathered = run(["--mutator", "devmangle", "--megachunk",
+                                 "0", "--device-decode"])
+    check(all(card[i] == batch[i] for i in range(4)) and gathered > 0,
+          f"64-lane --megachunk 0 --device-decode differs from the window "
+          f"campaign (windows gathered {gathered})")
+    print(f"phase 14: 64-lane 256-run --device-decode window campaign, card "
+          f"== cpu == card without device decode == card --megachunk 0 "
+          f"--device-decode: {len(card[0])} corpus digests, {len(card[1])} "
+          f"crash names, equal cov/edge bytes; {published} entries "
+          f"published on the card, 0 cross-check mismatches; {gathered} "
+          f"code windows gathered for the host service at --megachunk 0")
 
 
 def start_cpu_references(pool) -> dict:
-    """The CPU sides of phases 6, 9 and 11, started together in worker
+    """The CPU sides of phases 6, 9, 11 and 14, started together in worker
     processes once the card's timed phases are done."""
     import os
 
     jobs = {"demo_tlv": (small_campaign, "demo_tlv", "cpu"),
             "demo_tlv window": (small_campaign, "demo_tlv", "cpu", 20000,
                                 tuple(WINDOW)),
+            "demo_tlv window dd": (small_campaign, "demo_tlv", "cpu", 20000,
+                                   tuple(WINDOW) + ("--device-decode",)),
             "demo_kernel": (small_campaign, "demo_kernel", "cpu", 100000),
             "demo_usermode": (small_campaign, "demo_usermode", "cpu",
                               100000),
@@ -1111,16 +1404,19 @@ def main(argv=None) -> int:
     phase_campaign(k1, k2, record)
     phase_step_sys(dev, record)
     phase_kernel_campaign(k1, k2, record)
-    phase_window_campaign(k1, k2, record)
-    # the CPU references of phases 6, 9 and 11 run in worker processes,
+    window_out = phase_window_campaign(k1, k2, record)
+    phase_decode(dev, record)
+    phase_dd_window_campaign(k1, k2, record, window_out)
+    # the CPU references of phases 6, 9, 11 and 14 run in worker processes,
     # after every timed phase, while this process runs their card sides
     with ProcessPoolExecutor(
-            max_workers=6, mp_context=multiprocessing.get_context(
+            max_workers=7, mp_context=multiprocessing.get_context(
                 "spawn")) as pool:
         cpu = start_cpu_references(pool)
         phase_card_vs_cpu(cpu)
         phase_targets_card_vs_cpu(cpu)
-        phase_window_card_vs_cpu(cpu)
+        card_window = phase_window_card_vs_cpu(cpu)
+        phase_dd_card_vs_cpu(cpu, card_window)
 
     kernels = {"kernels": [k1, k2]}
     if args.out is not None:

@@ -16,7 +16,9 @@ timeout's coverage (client.cc:122-125).
 
 Device-generated batches (wtf_tpu_torch/devmut) run through
 `run_batch_device`, and whole multi-batch windows through
-`run_megachunk` (wtf_tpu_torch/fuzz/megachunk.py).
+`run_megachunk` (wtf_tpu_torch/fuzz/megachunk.py); with device decode the
+window's published decode entries are adopted into the host cache at
+harvest (`_harvest_device_decode`).
 """
 
 from __future__ import annotations
@@ -205,6 +207,13 @@ class GpuBackend(Backend):
         reg.counter("megachunk.windows").inc()
         out = self._dispatch_window(mutator, max_batches, n_batches)
         self._agg_cov, self._agg_edge = out.agg_cov, out.agg_edge
+        # device-decode harvest: adopt the window's published entries into
+        # the host cache BEFORE anything can service those rips again (the
+        # incomplete path's Runner.run below rebuilds the device table
+        # from the cache — rows left out would publish again at new
+        # indices and shift the coverage-bit mapping)
+        if runner.device_decode:
+            self._harvest_device_decode(out)
         self._last_new_words = out.new_words.cpu().numpy().view(np.uint32)
         b_done, incomplete = out.batches, out.incomplete
         statuses = out.statuses[:b_done].cpu().numpy()
@@ -221,6 +230,11 @@ class GpuBackend(Backend):
                 launches * self._fused_alias_bytes())
         processed = b_done + (1 if incomplete else 0)
         mutator.consume_window(processed)
+        if runner.device_decode and not incomplete:
+            # a complete window needed no host decode service; its length
+            # is the batches it carried without coming up for it
+            reg.counter("devdec.zero_host_windows").inc()
+            reg.counter("devdec.zero_host_batches").inc(b_done)
 
         batches = []
         for b in range(b_done):
@@ -255,6 +269,7 @@ class GpuBackend(Backend):
             # finish the in-flight batch through the ordinary servicing
             # loop (decode/SMC/oracle/breakpoints), then account it the
             # host way — this IS the batch-at-a-time path
+            reg.counter("megachunk.incomplete_windows").inc()
             statuses_fin = runner.run(bp_handler=self._dispatch_bp)
             self._finish_batch(statuses_fin, self.n_lanes)
             results = [self._map_result(lane, statuses_fin[lane])
@@ -288,9 +303,43 @@ class GpuBackend(Backend):
             out = fn(runner.device_tab(), runner.image, runner.machine,
                      runner.template, slab_first, slab_rest, seeds, pfns,
                      spec.gva, finish, self.limit, n_batches,
-                     self._agg_cov, self._agg_edge, spans)
+                     self._agg_cov, self._agg_edge, spans,
+                     runner.devdec_operands())
             sp.fence(out.agg_cov)
         return out
+
+    def _harvest_device_decode(self, out) -> int:
+        """Adopt the window's device-published decode entries into the
+        host cache (publish order kept: coverage bit i IS entry index i),
+        the host decoder cross-checking each, and fold the service stats.
+        Returns the number of adopted entries.  The cache's device copy
+        is rebuilt from the host arrays at the next `device()` call, row
+        for row the window's table."""
+        cache = self.runner.cache
+        reg = self.registry
+        serviced, published, parked, rounds = out.dd_stats
+        reg.counter("devdec.serviced_lanes").inc(serviced)
+        reg.counter("devdec.published").inc(published)
+        reg.counter("devdec.parked_lanes").inc(parked)
+        reg.counter("devdec.service_rounds").inc(rounds)
+        reg.counter("devdec.service_k1_rounds").inc(out.service_k1)
+        start, new_count = cache.count, out.count
+        if new_count < start:
+            raise RuntimeError(
+                f"device decode count went backwards: {new_count} < "
+                f"host cache {start}")
+        if new_count == start:
+            return 0
+        rows = (out.tab.rip[start:new_count].cpu().numpy(),
+                out.tab.meta_i32[start:new_count].cpu().numpy(),
+                out.tab.meta_u64[start:new_count].cpu().numpy())
+        mismatches = cache.adopt_device_entries(*rows, start, new_count)
+        reg.counter("devdec.crosscheck_mismatches").inc(mismatches)
+        if mismatches:
+            self.events.emit("devdec-mismatch",
+                             entries=new_count - start,
+                             mismatches=mismatches)
+        return new_count - start
 
     def _fused_alias_bytes(self) -> int:
         """Bytes of the 13 machine/overlay planes the fused kernel updates

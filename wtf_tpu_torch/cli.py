@@ -14,6 +14,8 @@ Both run on a CUDA device by default (`--device cuda`) and raise when
 there is none; `--device cpu` runs the plain PyTorch versions of the
 kernels on the CPU.  `--fused-step on|auto` drives the fused step kernel
 (interp/pstep.py); on a CUDA device both raise when it cannot be built.
+`--device-decode` services decode-cache misses on the device
+(interp/devdec.py).
 """
 
 from __future__ import annotations
@@ -49,6 +51,15 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                         "= on for a CUDA device, off on the CPU")
     p.add_argument("--fused-k", type=int, default=32,
                    help="instructions per lane per fused launch")
+    p.add_argument("--device-decode", action="store_true",
+                   help="device-resident x86 decode (interp/devdec.py): "
+                        "megachunk windows service decode-cache misses on "
+                        "the device (page-walked fetch, batched decode, "
+                        "publish-order slot reservation), parking only "
+                        "encodings outside its subset for the host; host "
+                        "service rounds fetch the missing code windows in "
+                        "one device pass; the host decoder cross-checks "
+                        "every device-published entry at harvest")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -120,7 +131,8 @@ def build_backend(target, args, registry: Registry):
                          f"and no state dir was given")
     backend = GpuBackend(snapshot, n_lanes=args.lanes, limit=args.limit,
                          registry=registry, events=NULL, device=args.device,
-                         fused_step=args.fused_step, fused_k=args.fused_k)
+                         fused_step=args.fused_step, fused_k=args.fused_k,
+                         device_decode=args.device_decode)
     with registry.spans.span("init"):
         backend.initialize()
     target.init(backend)

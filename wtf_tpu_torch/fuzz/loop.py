@@ -384,15 +384,43 @@ class FuzzLoop:
         self.events.emit("crash", name=name, size=len(data), new=new,
                          bucket=bucket)
 
+    def _peek(self, name: str):
+        """Counter value WITHOUT registering it — the heartbeat must not
+        seed zero-valued metrics into dumps of campaigns that never
+        touched the subsystem."""
+        metric = self.registry._metrics.get(name)
+        return metric.value if metric is not None else 0
+
+    def steady_state_fields(self) -> dict:
+        """The window campaign's steady-state numbers as heartbeat fields:
+        the share of windows that needed no host decode service, and the
+        device decoder's cross-check mismatches once it published.  Empty
+        for campaigns that never ran a window.  (The JAX package's
+        prelaunch fields stay out: the port does not prelaunch.)"""
+        fields = {}
+        windows = self._peek("megachunk.windows")
+        if windows:
+            fields["zero_host_window_rate"] = round(
+                self._peek("devdec.zero_host_windows") / windows, 3)
+        crosschecks = self._peek("devdec.crosscheck_mismatches")
+        if self._peek("devdec.published") or crosschecks:
+            fields["devdec_crosscheck_mismatches"] = crosschecks
+        return fields
+
     def _heartbeat(self, print_stats: bool) -> None:
         """stats_every cadence: the stable human line + one JSONL
         heartbeat carrying the full registry dump (per-phase span totals
         included) + an atomic status.json refresh next to the event log
-        (what `wtf-tpu status` tails on a live local campaign)."""
+        (what `wtf-tpu status` tails on a live local campaign).  Window
+        campaigns add the steady-state fields, and ` zh: N%` to the line."""
+        steady = self.steady_state_fields()
+        suffix = (f" zh: {steady['zero_host_window_rate']:.0%}"
+                  if "zero_host_window_rate" in steady else "")
         line = self.stats.maybe_heartbeat(
             self.events, self.registry,
-            lambda: self.stats.line(len(self.corpus), self._coverage()),
-            every=self.stats_every, print_stats=print_stats)
+            lambda: self.stats.line(len(self.corpus), self._coverage())
+            + suffix,
+            every=self.stats_every, print_stats=print_stats, **steady)
         if line is not None:
             self._write_status(line)
 

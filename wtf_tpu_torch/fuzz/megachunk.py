@@ -46,8 +46,16 @@ lane, then the precise resume leg for the lanes it parked; without it,
 precise steps until no lane is RUNNING.  Both retire every instruction
 bit-exactly, so the results are the same.
 
+Device decode (the `dd` operands, interp/devdec.py): a quiesce that leaves
+NEED_DECODE lanes is followed by service rounds — blocks computed against
+the round-start table, the commit in lane order, the lanes' deltas
+applied, a re-quiesce with the same engine — until no unparked lane is
+NEED_DECODE.  The window then carries the table with the published rows
+to its next batch and returns it with the live count and the service
+stats; parked lanes stay NEED_DECODE, so the host service finishes them.
+
 The machine is updated in place (the JAX window donates it).  Not carried
-yet: the device-decode operands (ROADMAP A11) and the mesh window (A13).
+yet: the mesh window and its all-gathered service (ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -61,9 +69,12 @@ import torch
 
 from wtf_tpu_torch.core.results import StatusCode
 from wtf_tpu_torch.devmut.engine import generate
+from wtf_tpu_torch.interp import devdec
 from wtf_tpu_torch.interp import ints as I
 from wtf_tpu_torch.interp import pstep
-from wtf_tpu_torch.interp.machine import N_CTRS, machine_restore
+from wtf_tpu_torch.interp.machine import (
+    CTR_MEM_FAULT, N_CTRS, machine_restore,
+)
 from wtf_tpu_torch.interp.runner import device_insert_impl
 from wtf_tpu_torch.interp.step import run_steps
 from wtf_tpu_torch.meshrun.reduce import merge_coverage
@@ -74,6 +85,7 @@ _TIMEDOUT = int(StatusCode.TIMEDOUT)
 _CR3 = int(StatusCode.CR3_CHANGE)
 _OVF = int(StatusCode.OVERLAY_FULL)
 _BP = int(StatusCode.BREAKPOINT)
+_ND = int(StatusCode.NEED_DECODE)
 
 # statuses the host servicing loop owns; PAGE_FAULT/DIVIDE_ERROR join
 # when the campaign delivers guest exceptions (runner.deliver_exceptions)
@@ -110,7 +122,16 @@ class MegaOut:
     prev: MegaSnap
     cur: MegaSnap
     # step-engine rounds over the window: [precise sweeps, K1 launches]
+    # (service re-quiesces included)
     engine_rounds: Tuple[int, int]
+    # device decode (the inputs when the window runs without it): the
+    # table with the device-published rows, its live count (-1 without),
+    # the stats (serviced lanes, published entries, parked lanes, service
+    # rounds) and the K1 launches of the service re-quiesces
+    tab: object
+    count: int
+    dd_stats: Tuple[int, int, int, int]
+    service_k1: int
 
 
 def quiesce_fused(tab, image, m, limit: int, fused_k: int,
@@ -142,17 +163,52 @@ def quiesce_ladder(tab, image, m, limit: int, spans) -> Tuple[int, int]:
     return sweeps, 0
 
 
+def service(tab, count: int, image, m, bp_keys: torch.Tensor, n_bp: int,
+            quiesce, spans):
+    """Device-decode service rounds after a quiesce (the JAX window's
+    `service`): compute every needy lane's block against the round-start
+    table, commit the blocks in lane order, apply the lanes' deltas
+    (status; on a fetch fault fault_gva, fault_write = 0 and one
+    CTR_MEM_FAULT) and re-quiesce with `quiesce(tab)`.  Stops when no
+    unparked lane is NEED_DECODE.  Returns (tab, count, [serviced,
+    published, parked, rounds], (precise sweeps, K1 launches) of the
+    re-quiesces)."""
+    capacity = tab.meta_i32.shape[0]
+    parked = torch.zeros_like(m.status, dtype=torch.bool)
+    stats = [0, 0, 0, 0]
+    sweeps = launches = 0
+    while bool(((m.status == _ND) & ~parked).any()):
+        with spans.span("devdec-service") as sp:
+            blocks = devdec.compute_blocks(tab, image, m, bp_keys, n_bp)
+            out = devdec.commit_blocks(tab, count, blocks, m.status,
+                                       capacity)
+            m.status.copy_(out.status)
+            fm = out.fault_mask
+            m.fault_gva.copy_(torch.where(fm, out.fault_gva, m.fault_gva))
+            m.fault_write.copy_(torch.where(fm, 0, m.fault_write))
+            m.ctr[:, CTR_MEM_FAULT] += out.mem_fault_inc
+            sp.fence(m.status)
+        tab, count = out.tab, out.count
+        parked |= out.parked
+        stats = [a + b for a, b in zip(stats, out.stats + (1,))]
+        sw, ln = quiesce(tab)
+        sweeps, launches = sweeps + sw, launches + ln
+    return tab, count, stats, (sweeps, launches)
+
+
 def window(tab, image, machine, template, slab_first: Tuple,
            slab_rest: Tuple, seeds: torch.Tensor, pfns: torch.Tensor,
            gva: int, finish: int, limit: int, n_batches: int,
-           agg_cov: torch.Tensor, agg_edge: torch.Tensor, spans, *,
-           max_batches: int, len_gpr: int, ptr_gpr: int, rounds: int,
+           agg_cov: torch.Tensor, agg_edge: torch.Tensor, spans, dd=None,
+           *, max_batches: int, len_gpr: int, ptr_gpr: int, rounds: int,
            deliver: bool, fused: bool, fused_k: int,
            fused_resume_steps: int) -> MegaOut:
     """Run one window of up to `n_batches` (<= max_batches) batches on
     `machine`, in place.  `seeds` is int64[max_batches, L] (the absolute
     batch indices' lane seeds); slabs are (data, lens, cumw) triples;
-    `spans` records each phase (fenced)."""
+    `spans` records each phase (fenced).  `dd` is the runner's
+    `devdec_operands()`: None without device decode, else (live cache
+    count, pending-breakpoint keys, their live length)."""
     n_lanes = machine.n_lanes
     dev = machine.device
     B = max_batches
@@ -170,7 +226,17 @@ def window(tab, image, machine, template, slab_first: Tuple,
     prev = cur = empty
     b, incomplete, find_b = 0, False, B
     sweeps = launches = 0
+    count, dd_stats, service_k1 = -1, (0, 0, 0, 0), 0
+    if dd is not None:
+        count, bp_keys, n_bp = dd
     m = machine
+
+    def quiesce(tab):
+        if fused:
+            return quiesce_fused(tab, image, m, limit, fused_k,
+                                 fused_resume_steps, spans)
+        return quiesce_ladder(tab, image, m, limit, spans)
+
     while b < n_batches:
         data, lens_s, cumw = slab_first if b == 0 else slab_rest
         with spans.span("overlay-restore") as sp:
@@ -182,12 +248,14 @@ def window(tab, image, machine, template, slab_first: Tuple,
         with spans.span("insert") as sp:
             device_insert_impl(m, words, lens, pfns, gva, len_gpr, ptr_gpr)
             sp.fence(m.status)
-        if fused:
-            sw, ln = quiesce_fused(tab, image, m, limit, fused_k,
-                                   fused_resume_steps, spans)
-        else:
-            sw, ln = quiesce_ladder(tab, image, m, limit, spans)
+        sw, ln = quiesce(tab)
         sweeps, launches = sweeps + sw, launches + ln
+        if dd is not None:
+            tab, count, st, (sw, ln) = service(tab, count, image, m,
+                                               bp_keys, n_bp, quiesce, spans)
+            dd_stats = tuple(a + c for a, c in zip(dd_stats, st))
+            sweeps, launches = sweeps + sw, launches + ln
+            service_k1 += ln
         with spans.span("merge"):
             # declarative stop: BREAKPOINT at the finish rip == the host
             # handler's stop(Ok()) — pre-execution, so no icount or
@@ -225,7 +293,9 @@ def window(tab, image, machine, template, slab_first: Tuple,
     return MegaOut(agg_cov=agg_cov, agg_edge=agg_edge, batches=b,
                    incomplete=incomplete, statuses=statuses,
                    new_flags=flags, ctr_sums=ctr_sums, new_words=new_words,
-                   prev=prev, cur=cur, engine_rounds=(sweeps, launches))
+                   prev=prev, cur=cur, engine_rounds=(sweeps, launches),
+                   tab=tab, count=count, dd_stats=dd_stats,
+                   service_k1=service_k1)
 
 
 def make_megachunk(max_batches: int, len_gpr: int, ptr_gpr: int,
@@ -233,7 +303,8 @@ def make_megachunk(max_batches: int, len_gpr: int, ptr_gpr: int,
                    fused_k: int = 32, fused_resume_steps: int = 1):
     """The single-device window for one insert ABI and step engine:
     (tab, image, machine, template, slab_first, slab_rest, seeds, pfns,
-    gva, finish, limit, n_batches, agg_cov, agg_edge, spans) -> MegaOut."""
+    gva, finish, limit, n_batches, agg_cov, agg_edge, spans, dd) ->
+    MegaOut."""
     return functools.partial(
         window, max_batches=max_batches, len_gpr=len_gpr, ptr_gpr=ptr_gpr,
         rounds=rounds, deliver=deliver, fused=fused, fused_k=fused_k,

@@ -21,8 +21,11 @@ memory writes buffered host-side and applied in one pass
 (`_apply_page_writes`) before the next chunk.  A device-generated batch
 (wtf_tpu_torch/devmut) lands through `device_insert_impl` instead, and the
 megachunk window (wtf_tpu_torch/fuzz/megachunk.py) is reached through
-`megachunk_callable`.  The supervisor, device decode and tenancy of the
-JAX runner are not part of the port yet.
+`megachunk_callable`.  With `device_decode` the window services decode
+misses on the device (interp/devdec.py) and the host service fetches the
+missing lanes' code windows in one device pass (`_gather_code_windows`).
+The supervisor and tenancy of the JAX runner are not part of the port
+yet.
 """
 
 from __future__ import annotations
@@ -516,6 +519,7 @@ class Runner:
         fused_resume_steps: int = 1,
         burst_any_tier: Optional[bool] = None,
         device="cuda",
+        device_decode: bool = False,
     ):
         self.registry = registry if registry is not None else Registry()
         self.events = events if events is not None else NULL
@@ -555,6 +559,12 @@ class Runner:
         self.fused_k = fused_k
         self.fused_rounds = fused_rounds
         self.fused_resume_steps = fused_resume_steps
+        # Device decode (interp/devdec.py): megachunk windows service
+        # decode misses on the device, and host service rounds fetch only
+        # the missing lanes' code windows instead of pulling page views.
+        # The host decoder re-decodes and checks every device-published
+        # entry at harvest (DecodeCache.adopt_device_entries).
+        self.device_decode = device_decode
         self.lane_errors: Dict[int, str] = {}
         self._smc_updates: Dict[Tuple[int, int], int] = {}
         # adaptive chunk growth for deep executions (x16 rungs up to 65536)
@@ -577,7 +587,8 @@ class Runner:
         # "not-yet-ported:<class>"
         self.stats = StatsDict(
             self.registry, "runner",
-            fields=("chunks", "decodes", "decodes_prefetched", "fallbacks",
+            fields=("chunks", "decodes", "decodes_prefetched",
+                    "decode_windows_gathered", "fallbacks",
                     "fallback_burst_steps", "smc_updates", "bp_dispatches",
                     "exceptions_delivered"),
             gauges=("max_chunk_steps",),
@@ -637,6 +648,23 @@ class Runner:
                               fused_k=self.fused_k,
                               fused_resume_steps=self.fused_resume_steps)
 
+    def devdec_operands(self):
+        """The window's device-decode operands, or None when device decode
+        is off: the live cache count, the pending-breakpoint keys (int64,
+        padded to a power-of-two bucket of at least 8; 0 is a valid key,
+        so the live length rides along) and that length."""
+        if not self.device_decode:
+            return None
+        keys = sorted(self.cache.pending_bps)
+        bucket = 8
+        while bucket < len(keys):
+            bucket *= 2
+        padded = np.zeros(bucket, dtype=np.uint64)
+        padded[:len(keys)] = keys
+        return (self.cache.count,
+                torch.from_numpy(padded.view(np.int64)).to(self.device),
+                len(keys))
+
     def megachunk_place(self, slab_first, slab_rest, seeds):
         """Placement hook for one window's operands — identity on a
         single device."""
@@ -675,13 +703,24 @@ class Runner:
             view.pending.clear()
 
     # -- servicing ---------------------------------------------------------
-    def _decode_at(self, view: HostView, lane: int, rip: int) -> bool:
+    def _decode_at(self, view: HostView, lane: int, rip: int,
+                   prefetched=None) -> bool:
         """Decode the instruction at `rip` through `lane`'s memory view and
-        publish it.  Returns False on a fetch fault (lane made terminal)."""
-        try:
-            window = view.virt_read(lane, rip, 15)
-            pfn0 = view.translate(lane, rip) >> PAGE_SHIFT
-        except HostFault:
+        publish it.  Returns False on a fetch fault (lane made terminal).
+
+        `prefetched` is an optional (window, fault, pfn0, pfn14) tuple
+        from the device window gather (device decode): the same bytes and
+        fault/pfn facts, with no HostView page pulls for the fetch."""
+        if prefetched is not None:
+            window, faulted, pfn0, pfn14 = prefetched
+        else:
+            try:
+                window = view.virt_read(lane, rip, 15)
+                pfn0 = view.translate(lane, rip) >> PAGE_SHIFT
+                faulted = False
+            except HostFault:
+                faulted = True
+        if faulted:
             self.lane_errors[lane] = f"fetch fault @ {rip:#x}"
             view.r["ctr"][lane, CTR_MEM_FAULT] += np.uint32(1)
             view.set_status(lane, StatusCode.PAGE_FAULT)
@@ -689,11 +728,19 @@ class Runner:
             view.r["fault_write"][lane] = np.int32(0)
             return False
         uop = decode(window, rip)
-        try:
-            pfn1 = view.translate(
-                lane, rip + max(uop.length - 1, 0)) >> PAGE_SHIFT
-        except HostFault:
-            pfn1 = pfn0
+        if prefetched is not None:
+            # a 15-byte window read that did not fault walked both pages:
+            # the last instruction byte lies on the second exactly when
+            # the instruction crosses the page
+            crosses = (rip & (PAGE_SIZE - 1)) + max(uop.length - 1, 0) \
+                >= PAGE_SIZE
+            pfn1 = pfn14 if crosses else pfn0
+        else:
+            try:
+                pfn1 = view.translate(
+                    lane, rip + max(uop.length - 1, 0)) >> PAGE_SHIFT
+            except HostFault:
+                pfn1 = pfn0
         self.cache.add(rip, uop, pfn0, pfn1)
         self.stats["decodes"] += 1
         self._prefetch_block(view, lane, uop, rip)
@@ -751,15 +798,48 @@ class Runner:
             work.extend(succs(u2, at))
 
     def _service_decode(self, view: HostView, lanes: List[int]) -> None:
+        windows = (self._gather_code_windows(view, lanes)
+                   if self.device_decode else {})
         done: Set[int] = set()
         for lane in lanes:
             rip = view.get_rip(lane)
             if rip not in done:
                 if not self.cache.has(rip):
-                    if not self._decode_at(view, lane, rip):
+                    if not self._decode_at(view, lane, rip,
+                                           prefetched=windows.get(lane)):
                         continue
                 done.add(rip)
             view.set_status(lane, StatusCode.RUNNING)
+
+    def _gather_code_windows(self, view: HostView, lanes: List[int]):
+        """Device decode's host-service half: ONE device pass gathers the
+        missing lanes' 15-byte code windows (and the fault/pfn facts of
+        their walks) through the overlay-aware page walk, so servicing a
+        decode miss moves k x 15 bytes instead of riding the HostView
+        page pulls.  Lanes whose rip is cached, or repeats an earlier
+        lane's this round, are skipped before the gather."""
+        from wtf_tpu_torch.interp import devdec
+
+        want: List[int] = []
+        seen: Set[int] = set()
+        for lane in lanes:
+            rip = view.get_rip(lane)
+            if rip in seen or self.cache.has(rip):
+                continue
+            seen.add(rip)
+            want.append(lane)
+        if not want:
+            return {}
+        m = self.machine
+        rips = torch.from_numpy(view.r["rip"].view(np.int64)).to(self.device)
+        out = devdec.gather_windows(
+            self.image, m.overlay, m.cr3, rips,
+            torch.tensor(want, dtype=torch.int64, device=self.device))
+        wins, faults, pfn0s, pfn14s = (x.cpu().numpy() for x in out)
+        self.stats["decode_windows_gathered"] += len(want)
+        return {lane: (wins[j].tobytes(), bool(faults[j]), int(pfn0s[j]),
+                       int(pfn14s[j]))
+                for j, lane in enumerate(want)}
 
     def _service_smc(self, view: HostView, lanes: List[int]) -> None:
         for lane in lanes:

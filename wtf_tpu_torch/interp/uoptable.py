@@ -12,6 +12,12 @@ as per-lane NEED_DECODE for the runner to service.
 Entry layout (capacity rows): the Uop integer fields (uops.INT_FIELDS
 order), disp/imm, the first 16 raw bytes (SMC verification), the
 decode-time code page frames pfn0/pfn1, and the breakpoint bit.
+
+Rows the device decoder (interp/devdec.py) publishes inside a window come
+back through `adopt_device_entries`, which re-decodes each on the host and
+appends it in publish order; the device copy is then rebuilt from the
+host arrays on the next `device()` call, row for row what the window
+published.
 """
 
 from __future__ import annotations
@@ -208,6 +214,65 @@ class DecodeCache:
         self.uops[key] = uop
         self._device = None
         return idx
+
+    # -- checkpoint stream -------------------------------------------------
+    def checkpoint_entries(self) -> list:
+        """Insertion-ordered entry snapshot: (rip, raw bytes, pfn0, pfn1)
+        per entry, a 5th element carrying the tenant when it is nonzero
+        (the JAX package's checkpoint stream).  Coverage bit i IS entry
+        index i, so two caches with equal streams map coverage alike."""
+        out = []
+        for idx in range(self.count):
+            key = int(self.rip[idx])
+            tenant = int(self.tenant_of[idx])
+            entry = (tag_key(key, tenant), self.uops[key].raw,
+                     int(self.pfn0[idx]), int(self.pfn1[idx]))
+            out.append(entry if tenant == 0 else entry + (tenant,))
+        return out
+
+    # -- device-published entry adoption (interp/devdec.py harvest) ------
+    def adopt_device_entries(self, rip, meta_i32, meta_u64,
+                             start: int, end: int) -> int:
+        """Append rows [start, end) that the device decoder published
+        during a megachunk window, in publish order, so host and device
+        tables keep identical entry indices.  The arrays are the
+        [start, end) SLICE of the device table (row 0 == entry `start`):
+        `rip` int64 probe keys, `meta_i32`, `meta_u64` (int64 bits).  The
+        host decoder stays the oracle: every row is re-decoded from its
+        raw bytes and checked field for field, and the HOST result is
+        stored.  Returns the number of rows the device decoded otherwise
+        (0 unless the device decoder is wrong)."""
+        from wtf_tpu_torch.cpu.decoder import decode
+
+        if start != self.count:
+            raise RuntimeError(
+                f"device-entry adoption out of order: device rows start "
+                f"at {start}, host cache has {self.count}")
+        rip = np.asarray(rip)
+        meta_i32 = np.asarray(meta_i32)
+        meta_u64 = np.asarray(meta_u64).view(np.uint64)
+        mismatches = 0
+        for idx in range(end - start):
+            key = int(rip[idx]) & _MASK64
+            # untag: canonical rips carry bits 63:48 as copies of bit 47
+            # (bit 47 is below the tag, so it survives tagging intact)
+            tenant = (key >> 48) ^ (0xFFFF if (key >> 47) & 1 else 0)
+            gva = tag_key(key, tenant)
+            length = max(int(meta_i32[idx, F_LENGTH]), 0)
+            raw = (int(meta_u64[idx, MU_RAW_LO]).to_bytes(8, "little")
+                   + int(meta_u64[idx, MU_RAW_HI]).to_bytes(8, "little")
+                   )[:length]
+            uop = decode(raw, gva)
+            bad = any(int(meta_i32[idx, f]) != int(getattr(uop, name))
+                      for f, name in enumerate(INT_FIELDS))
+            bad = bad or int(meta_u64[idx, MU_DISP]) != (uop.disp & _MASK64)
+            bad = bad or int(meta_u64[idx, MU_IMM]) != (uop.imm & _MASK64)
+            bad = bad or int(meta_i32[idx, M_BP]) != (
+                1 if key in self.pending_bps else 0)
+            mismatches += bool(bad)
+            self.add(gva, uop, int(meta_i32[idx, M_PFN0]),
+                     int(meta_i32[idx, M_PFN1]), tenant=tenant)
+        return mismatches
 
     # -- breakpoints -----------------------------------------------------
     def set_breakpoint(self, gva: int, tenant: int = 0) -> None:

@@ -8,7 +8,8 @@ supported; accessed/dirty bits are NOT set (the JAX package's documented
 divergence — bochs sets them, which only grows the dirty set).
 
 Page-table reads go through the lane's overlay, so guest-modified page
-tables are honored within a testcase.
+tables are honored within a testcase.  `virt_read` is the byte read the
+device decoder fetches code windows with (wtf_tpu/mem/paging.py:136-155).
 """
 
 from __future__ import annotations
@@ -18,7 +19,8 @@ from typing import NamedTuple
 import torch
 
 from wtf_tpu_torch.interp import ints as I
-from wtf_tpu_torch.mem.overlay import DirtyOverlay, pte_read
+from wtf_tpu_torch.core.gxa import PAGE_SIZE
+from wtf_tpu_torch.mem.overlay import DirtyOverlay, gather_bytes, pte_read
 from wtf_tpu_torch.mem.physmem import MemImage
 
 PHYS_MASK = 0x000F_FFFF_FFFF_F000
@@ -72,3 +74,36 @@ def translate(image: MemImage, ov: DirtyOverlay, cr3: torch.Tensor,
             gpa = torch.where(done, gpa, leaf_gpa)
         table = entry & PHYS_MASK
     return Translation(gpa=gpa, ok=ok, writable=writable, user=user)
+
+
+def _virt_byte_addrs(gva: torch.Tensor, size: int, gpa_first: torch.Tensor,
+                     gpa_last: torch.Tensor):
+    """Per-byte gpa [L, size] of a virtual span touching at most two
+    pages, and the mask of the bytes on the first byte's page."""
+    offs = torch.arange(size, device=gva.device)
+    first_mask = ((gva & (PAGE_SIZE - 1))[:, None] + offs) < PAGE_SIZE
+    gpa_vec = torch.where(first_mask, gpa_first[:, None] + offs,
+                          gpa_last[:, None] - (size - 1) + offs)
+    return gpa_vec, first_mask
+
+
+def virt_read_walk(image: MemImage, ov: DirtyOverlay, cr3: torch.Tensor,
+                   gva: torch.Tensor, size: int):
+    """`virt_read` that also returns its two walks: (bytes uint8[L, size],
+    fault bool[L], Translation [L, 2] of the first and the last byte)."""
+    t = translate(image, ov, cr3, torch.stack([gva, gva + (size - 1)], 1))
+    fault = ~(t.ok[:, 0] & t.ok[:, 1])
+    gpa_vec, first_mask = _virt_byte_addrs(gva, size, t.gpa[:, 0],
+                                           t.gpa[:, 1])
+    return gather_bytes(image, ov, gpa_vec, first_mask), fault, t
+
+
+def virt_read(image: MemImage, ov: DirtyOverlay, cr3: torch.Tensor,
+              gva: torch.Tensor, size: int):
+    """Read uint8[L, size] at each lane's guest-virtual gva [L] ->
+    (bytes, fault).  The two-translation form of the reference's
+    page-by-page VirtRead (backend.cc:30-77): the first and the last byte
+    are walked and the spans stitched, so the read faults when either
+    does (any-byte-faults for spans under a page)."""
+    data, fault, _ = virt_read_walk(image, ov, cr3, gva, size)
+    return data, fault
