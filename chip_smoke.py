@@ -82,8 +82,33 @@ Phases (each prints one line; any failure exits non-zero):
  14. a 64-lane, 256-run --device-decode window campaign on the card, on
      the CPU and (phase 11) on the card without device decode: equal
      results; and --megachunk 0 --device-decode on the card once
+ 15. crash-dump snapshots: demo_kernel exported by the `snapshot`
+     subcommand as dmp-full (it must load back equal) and dmp-bmp, the
+     bitmap dump padded with 262,144 seeded filler pages (1 GiB) at pfns
+     no guest table reaches (a walk from cr3 shows it), then phase 8's
+     campaign with --state on the padded dump: results equal phase 8's,
+     the native parser must have parsed it; dump bytes, parse,
+     PhysMem.from_pages and upload seconds, device peak
+ 16. demo_maze, demo_ioctl and demo_fs campaigns at phase 8's size, each
+     seeded with its reference test's input, counts zeroed just before
+     and read just after: the native host mutator, K1 launched, no
+     oracle fallback, every lane terminal; execs/s, K1 launches per
+     batch, occupancy, spans, breakpoint services (demo_fs); K1 against
+     its plain version on a crafted batch start of each (payloads at
+     ioctl's page end); a profiled rerun of demo_fs for the host share
+ 17. a 64-lane, 256-run campaign of demo_maze, demo_ioctl, demo_fs and
+     demo_spin on the card and on the CPU: equal results
+ 18. demo_spin deep, bench.py's chip workload (1024 lanes, max_len 4, the
+     native engine behind bench's spin-count cap, --fused-k 32) at limit
+     1,000,000: a warm-up batch with K1 rounds 8,000-10,000 traced by
+     torch.profiler, then unprofiled batches for 30 s; execs/s,
+     instructions/s, timeout fraction, K1 launches per batch and per
+     second, K1's and the resume legs' shares of the wall, the host
+     share of the traced rounds against their unprofiled wall
 
-Every phase always runs, at the sizes above.  Phases 6, 9, 11 and 14 run
+Phase 8 fails unless its host mutator is the native engine (the one the
+reference CLI picks).  Every phase always runs, at the sizes above.
+Phases 6, 9, 11, 14 and 17 run
 last, after the timed phases: their CPU sides run in worker processes started
 together (spawned, and joined before the script ends) while this process
 runs their card sides.  The card's nvidia-smi line
@@ -171,6 +196,28 @@ DCAMPAIGN = WCAMPAIGN + ["--device-decode"]
 KCAMPAIGN = ["campaign", "--name", "demo_kernel", "--fused-step", "on",
              "--lanes", str(LANES), "--runs", str(RUNS), "--limit",
              "100000", "--max_len", "96", "--seed", "5"]
+
+# phase 15: demo_kernel's bitmap dump padded with 1 GiB of filler pages
+DUMP_FILLER_PAGES = 262_144
+DUMP_FILLER_BASE = 0x100000            # the first filler pfn (4 GiB up)
+# phases 16 and 17: the remaining synthetic targets, each campaign seeded
+# with its reference test's input
+NEW_TARGETS = ("demo_maze", "demo_ioctl", "demo_fs")
+TARGET_SEEDS = {"demo_maze": [b"aaaa"],
+                "demo_ioctl": [b"\x03\x20\x22\x00\x02\x00AB"],
+                "demo_fs": [b"HELLOWORLD123456"]}
+# phase 18: bench.py's deep workload, its limit cut from 10M
+SPIN_LANES = 1024
+SPIN_LIMIT = 1_000_000
+SPIN_SECONDS = 30.0
+SPIN_WINDOW = (8_000, 10_000)          # K1 rounds traced for the host share
+SPIN_SMALL_LIMIT = 500                 # phase 17's 64-lane demo_spin
+TERMINAL = {"OK", "CRASH", "TIMEDOUT", "PAGE_FAULT", "OVERLAY_FULL",
+            "CR3_CHANGE", "DIVIDE_ERROR", "HARD_ERROR"}
+SPANS = ("mutate", "execute", "harvest", "restore", "execute/insert",
+         "execute/fused-step", "execute/device-step", "execute/service-pull",
+         "execute/service-decode", "execute/service-push",
+         "execute/cov-readback", "restore/overlay-restore")
 
 # Phase 7's guest: the integer and system classes of the precise step, one
 # after another (GNU as, Intel syntax; ` ; ` separates instructions).
@@ -764,19 +811,34 @@ def profiled_rerun(phase: str, argv: list, rec: dict, k1_launches: int,
 
 
 def small_campaign(name: str, device: str, limit: int = 20000,
-                   extra: tuple = ()) -> tuple:
+                   extra: tuple = (), seeded: bool = False) -> tuple:
     """(corpus digests, crash names, cov bytes, edge bytes, statuses,
     seconds) of a 64-lane, 256-run campaign at seed 5 on `device`
-    (`extra`: more campaign flags)."""
+    (`extra`: more campaign flags; `seeded`: inputs/ holds the target's
+    seed input)."""
     from wtf_tpu_torch import cli
 
-    a = cli.build_parser().parse_args(
-        ["campaign", "--name", name, "--fused-step", "on", "--lanes", "64",
-         "--runs", "256", "--limit", str(limit), "--max_len", "96",
-         "--seed", "5", "--device", device, *extra])
-    t0 = time.perf_counter()
-    loop = cli.campaign(a)
-    return outcome(loop) + (time.perf_counter() - t0,)
+    with tempfile.TemporaryDirectory() as tmp:
+        a = cli.build_parser().parse_args(
+            ["campaign", "--name", name, "--fused-step", "on", "--lanes",
+             "64", "--runs", "256", "--limit", str(limit), "--max_len", "96",
+             "--seed", "5", "--device", device, *extra,
+             *(seeded_target(name, tmp) if seeded else [])])
+        t0 = time.perf_counter()
+        loop = cli.campaign(a)
+        return outcome(loop) + (time.perf_counter() - t0,)
+
+
+def seeded_target(name: str, tmp: str) -> list:
+    """`--target` flags for a fresh target dir under `tmp` whose inputs/
+    holds `name`'s seed inputs (none for a target without seeds)."""
+    if name not in TARGET_SEEDS:
+        return []
+    inputs = Path(tmp) / "target" / "inputs"
+    inputs.mkdir(parents=True, exist_ok=True)
+    for i, data in enumerate(TARGET_SEEDS[name]):
+        (inputs / f"seed{i}").write_bytes(data)
+    return ["--target", str(Path(tmp) / "target")]
 
 
 def outcome(loop) -> tuple:
@@ -861,7 +923,7 @@ def phase_step_sys(dev, record: dict) -> None:
                           "card_ms_per_step": ms / SYS_STEPS}
 
 
-def phase_kernel_campaign(k1: dict, k2: dict, record: dict) -> None:
+def phase_kernel_campaign(k1: dict, k2: dict, record: dict) -> tuple:
     import torch
 
     from wtf_tpu_torch import cli
@@ -895,6 +957,10 @@ def phase_kernel_campaign(k1: dict, k2: dict, record: dict) -> None:
     check(set(counts) <= terminal
           and sum(counts.values()) == loop.stats.testcases >= RUNS,
           f"non-terminal lanes: {counts}")
+    engine = type(loop.mutator).__name__
+    check(engine == "NativeMangleMutator",
+          f"demo_kernel's host mutator is {engine}, not the native engine "
+          f"the reference CLI picks")
     batches = backend.stats["batches"]
     spans = reg.spans
     span_s = {p: spans.seconds(p) for p in (
@@ -903,8 +969,9 @@ def phase_kernel_campaign(k1: dict, k2: dict, record: dict) -> None:
         "execute/service-decode", "execute/service-push",
         "execute/cov-readback", "restore/overlay-restore")}
     names = sorted(loop.crash_names)
-    print(f"phase 8: demo_kernel campaign {loop.stats.testcases} testcases "
-          f"in {wall:.2f} s = {loop.stats.testcases / wall:.1f} execs/s; K1 "
+    print(f"phase 8: demo_kernel campaign ({engine}) {loop.stats.testcases} "
+          f"testcases in {wall:.2f} s = {loop.stats.testcases / wall:.1f} "
+          f"execs/s; K1 "
           f"launches {launches['fused_step']} ({launches['fused_step'] / batches:.1f} "
           f"per batch), K2 {launches['probe']}; fused occupancy "
           f"{occupancy:.4f} ({fused}/{instr}); oracle fallbacks {fallbacks}; "
@@ -919,10 +986,13 @@ def phase_kernel_campaign(k1: dict, k2: dict, record: dict) -> None:
         "k1_launches": launches["fused_step"], "batches": batches,
         "occupancy": occupancy, "instructions": instr,
         "fallbacks": fallbacks, "spans": span_s, "bytes_in_use": in_use,
-        "peak_bytes": peak, "statuses": counts, "crash_names": names}
+        "peak_bytes": peak, "statuses": counts, "crash_names": names,
+        "mutator": engine}
+    kernel_out = outcome(loop)
     backend.restore()
     del loop, backend
     torch.cuda.empty_cache()
+    return kernel_out
 
 
 KERNEL_RUNS = {
@@ -1354,9 +1424,506 @@ def phase_dd_card_vs_cpu(cpu, card_window: tuple) -> None:
           f"code windows gathered for the host service at --megachunk 0")
 
 
+# ---------------------------------------------------------------------------
+# phases 15-18: crash-dump snapshots, the remaining targets, demo_spin deep
+# ---------------------------------------------------------------------------
+
+def mapped_pfns(pages: dict, cr3: int) -> set:
+    """Every pfn the 4-level tables under cr3 reach: the tables themselves
+    and the pages they map (a large page counts its whole range)."""
+    import numpy as np
+
+    pfn_mask = (1 << 40) - 1
+    out, tables = set(), [((cr3 >> 12) & pfn_mask, 4)]
+    while tables:
+        pfn, level = tables.pop()
+        out.add(pfn)
+        if pfn not in pages:
+            continue
+        for e in np.frombuffer(pages[pfn], dtype="<u8").tolist():
+            if not e & 1:
+                continue
+            nxt = (e >> 12) & pfn_mask
+            if level == 1:
+                out.add(nxt)
+            elif level in (2, 3) and e & 0x80:
+                out.update(range(nxt, nxt + 512 ** (level - 1)))
+            else:
+                tables.append((nxt, level - 1))
+    return out
+
+
+def phase_dump(k1: dict, k2: dict, record: dict, kernel_out: tuple) -> None:
+    import numpy as np
+    import torch
+
+    from wtf_tpu_torch import cli
+    from wtf_tpu_torch.harness import demo_kernel
+    from wtf_tpu_torch.interp import pstep
+    from wtf_tpu_torch.mem.physmem import PhysMem
+    from wtf_tpu_torch.snapshot import kdmp
+    from wtf_tpu_torch.snapshot.loader import load_snapshot
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        snap = demo_kernel.build_snapshot()
+        snap.save_raw(tmp / "npz")
+        for fmt in ("dmp-bmp", "dmp-full"):
+            check(cli.main(["snapshot", "--state", str(tmp / "npz"), "--out",
+                            str(tmp / fmt), "--format", fmt]) == 0,
+                  f"snapshot --format {fmt} failed")
+        full = load_snapshot(tmp / "dmp-full")
+        check(np.array_equal(full.physmem.pages, snap.physmem.pages)
+              and np.array_equal(full.physmem.frame_table,
+                                 snap.physmem.frame_table)
+              and full.cpu == snap.cpu and full.symbols == snap.symbols,
+              "the dmp-full export does not load back to demo_kernel's "
+              "snapshot")
+        # pad the bitmap dump with seeded filler pages no table reaches
+        pages = kdmp.parse_kdmp(tmp / "dmp-bmp" / "mem.dmp")
+        reach = mapped_pfns(pages, snap.cpu.cr3)
+        check(max(max(pages), max(reach)) < DUMP_FILLER_BASE,
+              "demo_kernel's pages reach the filler pfns")
+        filler = np.random.default_rng(5).integers(
+            0, 256, (DUMP_FILLER_PAGES, 4096), dtype=np.uint8)
+        for i in range(DUMP_FILLER_PAGES):
+            pages[DUMP_FILLER_BASE + i] = filler[i].tobytes()
+        del filler
+        padded = tmp / "padded"
+        padded.mkdir()
+        t0 = time.perf_counter()
+        kdmp.write_kdmp(padded / "mem.dmp", pages, dump_type="bmp",
+                        dtb=snap.cpu.cr3, cpu=snap.cpu)
+        write_s = time.perf_counter() - t0
+        del pages
+        for name in ("regs.json", "symbol-store.json"):
+            (padded / name).write_bytes((tmp / "dmp-bmp" / name).read_bytes())
+        dump_bytes = (padded / "mem.dmp").stat().st_size
+
+        # phase 8's campaign from the padded dump, its load timed in parts
+        times = {"parse": 0.0, "from_pages": 0.0, "upload": 0.0}
+        natives = []
+        orig = (kdmp._parse_native, kdmp.parse_kdmp,
+                PhysMem.__dict__["from_pages"], PhysMem.image)
+
+        def timed(key, fn):
+            def wrapped(*args, **kwargs):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                times[key] += time.perf_counter() - t1
+                return out
+            return wrapped
+
+        def native(path):
+            out = orig[0](path)
+            natives.append(out is not None)
+            return out
+
+        kdmp._parse_native = native
+        kdmp.parse_kdmp = timed("parse", orig[1])
+        PhysMem.from_pages = classmethod(timed("from_pages", orig[2].__func__))
+        PhysMem.image = timed("upload", orig[3])
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            for name in pstep.LAUNCHES:
+                pstep.LAUNCHES[name] = 0
+            t0 = time.perf_counter()
+            loop = cli.campaign(cli.build_parser().parse_args(
+                KCAMPAIGN + ["--state", str(padded)]))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            (kdmp._parse_native, kdmp.parse_kdmp, PhysMem.from_pages,
+             PhysMem.image) = orig
+        launches = dict(pstep.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+    check(natives and all(natives),
+          f"the native kdmp parser did not parse the dump ({natives})")
+    check(launches["fused_step"] > 0, f"K1 never launched: {launches}")
+    check(outcome(loop) == kernel_out,
+          "the campaign from the padded dump differs from phase 8's")
+    backend = loop.backend
+    frames = backend.snapshot.physmem.nframes
+    load_s = loop.registry.spans.seconds("snapshot-load")
+    print(f"phase 15: demo_kernel exported as dmp-bmp and dmp-full (the full "
+          f"dump loads back equal), the bitmap dump padded with "
+          f"{DUMP_FILLER_PAGES} seeded filler pages at pfn "
+          f"{DUMP_FILLER_BASE:#x}+ (no table reaches them): {dump_bytes} "
+          f"bytes, written in {write_s:.2f} s; phase 8's campaign from it "
+          f"({wall:.2f} s with the load = "
+          f"{loop.stats.testcases / wall:.1f} execs/s, "
+          f"{loop.stats.testcases / (wall - load_s):.1f} without it) equals "
+          f"phase 8's corpus, crashes and cov/edge bytes; "
+          f"native parse {times['parse']:.2f} s, PhysMem.from_pages "
+          f"{times['from_pages']:.2f} s, upload {times['upload']:.3f} s "
+          f"(snapshot-load span {load_s:.2f} s, {frames} frames); K1 "
+          f"launches {launches['fused_step']}; device bytes peak {peak}")
+    k1["launches_by_path"]["demo_kernel dmp state"] = launches["fused_step"]
+    k2["launches_by_path"]["demo_kernel dmp state"] = launches["probe"]
+    record["dump_campaign"] = {
+        "dump_bytes": dump_bytes, "filler_pages": DUMP_FILLER_PAGES,
+        "write_s": write_s, "parse_s": times["parse"],
+        "from_pages_s": times["from_pages"], "upload_s": times["upload"],
+        "snapshot_load_s": load_s, "frames": frames, "wall_s": wall,
+        "execs_per_s": loop.stats.testcases / wall,
+        "execs_per_s_without_load": loop.stats.testcases / (wall - load_s),
+        "k1_launches": launches["fused_step"], "peak_bytes": peak}
+    backend.restore()
+    del loop, backend
+    torch.cuda.empty_cache()
+
+
+def hold_k1(loop, testcases: list, rounds: int = 2) -> tuple:
+    """K1 against its plain version on a fresh batch of `testcases` from
+    its start, `rounds` dispatches in a row: (max abs err, instructions
+    retired, lanes parked).  These launches are comparisons: the counts
+    are put back as they were."""
+    import torch
+
+    from wtf_tpu_torch.interp import pstep
+    from wtf_tpu_torch.interp.machine import CTR_INSTR
+
+    backend, runner = loop.backend, loop.backend.runner
+    counts = dict(pstep.LAUNCHES)
+    view = backend._ensure_view()
+    for lane, data in enumerate(testcases):
+        with backend._bound(view, lane):
+            loop.target.insert_testcase(backend, data)
+    runner.push(view)
+    backend._view = None
+    tab, img = runner.device_tab(), runner.image
+    m0 = runner.machine.clone()
+    mk, mp = m0.clone(), m0.clone()
+    for _ in range(rounds):
+        pstep.fused_step(tab, img, mk, runner.limit, runner.fused_k)
+        pstep.fused_step_plain(tab, img, mp, runner.limit, runner.fused_k)
+    torch.cuda.synchronize()
+    pstep.LAUNCHES.update(counts)
+    bad, err = plane_diff(mk, mp)
+    check(not bad, f"K1 differs from fused_step_plain on a "
+                   f"{loop.target.name} batch in {bad}")
+    retired = int((mk.ctr[:, CTR_INSTR] - m0.ctr[:, CTR_INSTR]).sum())
+    parked = int((mk.status == pstep._NEEDS_XLA).sum())
+    loop.target.restore()
+    backend.restore()
+    return err, retired, parked
+
+
+def held_batch(name: str, loop, n: int) -> list:
+    """A batch for hold_k1: crafted inputs that reach each target's
+    interesting paths inside two dispatches, and mutated ones."""
+    import struct
+
+    def ioctl(code, payload):
+        return struct.pack("<I", code) + payload
+
+    crafted = {
+        "demo_maze": [b"wtf!", b"wtfx", b"wtxx", b"wxxx", b"aaaa", b""],
+        # payloads pushed against the end of the input page: a lying
+        # length reads across it, the sum reads up to its last byte
+        "demo_ioctl": [ioctl(0x222003, struct.pack("<H", 500) + b"x" * k)
+                       for k in range(7)]
+        + [ioctl(0x222007, b"\x01" * k) for k in (1, 5, 9)]
+        + [ioctl(0x222003, struct.pack("<H", 3) + b"abc")],
+        "demo_fs": [b"HELLOWORLD123456", b"short", b""],
+        "demo_spin": [struct.pack("<I", k) for k in (0, 1, 3, 1 << 30)],
+    }[name]
+    mutated = loop.mutator.get_new_batch(loop.corpus, n)
+    return [crafted[i % len(crafted)] if i % 2 == 0 else mutated[i]
+            for i in range(n)]
+
+
+def target_argv(name: str) -> list:
+    return ["campaign", "--name", name, "--fused-step", "on", "--lanes",
+            str(LANES), "--runs", str(RUNS), "--limit", "100000",
+            "--max_len", "96", "--seed", "5"]
+
+
+def phase_targets(k1: dict, k2: dict, record: dict) -> None:
+    import torch
+
+    from wtf_tpu_torch import cli
+    from wtf_tpu_torch.harness import demo_fs
+    from wtf_tpu_torch.interp import pstep
+
+    record["targets"] = {}
+    for name in NEW_TARGETS:
+        with tempfile.TemporaryDirectory() as tmp:
+            argv = target_argv(name) + seeded_target(name, tmp)
+            torch.cuda.reset_peak_memory_stats()
+            for key in pstep.LAUNCHES:
+                pstep.LAUNCHES[key] = 0
+            t0 = time.perf_counter()
+            loop = cli.campaign(cli.build_parser().parse_args(argv))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(pstep.LAUNCHES)
+            rec = target_record(name, loop, wall, launches)
+            err, retired, parked = hold_k1(
+                loop, held_batch(name, loop, loop.backend.n_lanes))
+            k1["max_abs_err"] = max(k1["max_abs_err"] or 0, err)
+            extra = ""
+            if name == "demo_fs":
+                bp = rec["bp_dispatches"]
+                rec["guestfs"] = dict(
+                    demo_fs._FS_BY_BACKEND[id(loop.backend)].stats)
+                extra = (f"; breakpoint services {bp} "
+                         f"({bp / rec['batches']:.0f} per batch), guestfs "
+                         f"{rec['guestfs']}")
+            print(f"phase 16: {name} campaign ({rec['mutator']}) "
+                  f"{rec['testcases']} testcases in {wall:.2f} s = "
+                  f"{rec['execs_per_s']:.1f} execs/s; K1 launches "
+                  f"{rec['k1_launches']} "
+                  f"({rec['k1_launches'] / rec['batches']:.1f} per batch); "
+                  f"fused occupancy {rec['occupancy']:.4f}; oracle fallbacks "
+                  f"{rec['fallbacks']}; statuses {rec['statuses']}; corpus "
+                  f"{rec['corpus']}, crash names {rec['crash_names'][:4]}; "
+                  f"device bytes peak {rec['peak_bytes']}{extra}; K1 == "
+                  f"plain on a batch start over 2 dispatches (retired "
+                  f"{retired}, parked {parked}); spans "
+                  + ", ".join(f"{k} {v:.2f}" for k, v in rec["spans"].items()))
+            k1["launches_by_path"][name] = launches["fused_step"]
+            k2["launches_by_path"][name] = launches["probe"]
+            record["targets"][name] = rec
+            del loop
+            torch.cuda.empty_cache()
+        if name == "demo_fs":
+            with tempfile.TemporaryDirectory() as tmp:
+                profiled_rerun("phase 16 demo_fs",
+                               target_argv(name) + seeded_target(name, tmp),
+                               rec, launches["fused_step"], wall)
+
+
+def target_record(name: str, loop, wall: float, launches: dict) -> dict:
+    """A finished main-path-shaped campaign of `name`, checked: the native
+    host mutator, K1 launched, no oracle fallback, every lane terminal."""
+    import torch
+
+    backend = loop.backend
+    reg = backend.registry
+    instr = reg.counter("device.instructions").value
+    fused = reg.counter("device.fused_steps").value
+    counts = backend.status_counts
+    stats = backend.runner.stats
+    engine = type(loop.mutator).__name__
+    check(engine == "NativeMangleMutator" or (
+        name == "demo_spin" and type(loop.mutator.inner).__name__
+        == "NativeMangleMutator"),
+          f"{name}'s host mutator is {engine}, not the native engine")
+    check(launches["fused_step"] > 0, f"K1 never launched: {launches}")
+    check(launches["probe"] > 0, f"K2 never launched: {launches}")
+    check(stats["fallbacks"] == 0,
+          f"{name} fell back to the oracle {stats['fallbacks']} times")
+    check(set(counts) <= TERMINAL
+          and sum(counts.values()) == loop.stats.testcases,
+          f"non-terminal lanes: {counts}")
+    return {"testcases": loop.stats.testcases, "wall_s": wall,
+            "execs_per_s": loop.stats.testcases / wall,
+            "k1_launches": launches["fused_step"],
+            "batches": backend.stats["batches"],
+            "occupancy": fused / max(instr, 1), "instructions": instr,
+            "fallbacks": stats["fallbacks"],
+            "spans": {p: reg.spans.seconds(p) for p in SPANS},
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "statuses": dict(counts),
+            "crash_names": sorted(loop.crash_names),
+            "corpus": len(loop.corpus), "mutator": engine,
+            "bp_dispatches": stats["bp_dispatches"]}
+
+
+class CappedSpin:
+    """bench.py `_deepbench`'s mutator: the host engine's testcases with
+    the spin count taken modulo `max_iters` (1.1x the budget's
+    iterations), so most lanes finish and a few time out."""
+
+    def __init__(self, inner, max_iters: int):
+        self.inner, self.max_iters = inner, max_iters
+
+    def _cap(self, raw: bytes) -> bytes:
+        import struct
+
+        (count,) = struct.unpack("<I", raw.ljust(4, b"\x00")[:4])
+        return struct.pack("<I", count % self.max_iters)
+
+    def get_new_testcase(self, corpus) -> bytes:
+        return self._cap(self.inner.get_new_testcase(corpus))
+
+    def get_new_batch(self, corpus, count: int) -> list:
+        return [self._cap(t) for t in self.inner.get_new_batch(corpus, count)]
+
+    def on_new_coverage(self, testcase: bytes) -> None:
+        self.inner.on_new_coverage(testcase)
+
+
+def spin_loop(device: str, lanes: int = SPIN_LANES, limit: int = SPIN_LIMIT):
+    """bench.py `_deepbench`'s workload on the port: demo_spin at `lanes`
+    lanes (chunk_steps 512, 16 overlay slots), the native engine behind
+    the spin-count cap, the corpus seeded as bench seeds it, the fused
+    step at --fused-k 32."""
+    import random
+    import struct
+
+    from wtf_tpu_torch.backend.gpu import GpuBackend
+    from wtf_tpu_torch.fuzz.corpus import Corpus
+    from wtf_tpu_torch.fuzz.loop import FuzzLoop
+    from wtf_tpu_torch.fuzz.native_mutator import best_mangle_mutator
+    from wtf_tpu_torch.harness import demo_spin
+    from wtf_tpu_torch.telemetry import Registry
+
+    registry = Registry()
+    backend = GpuBackend(demo_spin.build_snapshot(), n_lanes=lanes,
+                         limit=limit, registry=registry, device=device,
+                         chunk_steps=512, overlay_slots=16,
+                         fused_step="on", fused_k=32)
+    with registry.spans.span("init"):
+        backend.initialize()
+    demo_spin.TARGET.init(backend)
+    rng = random.Random(0xD33B)
+    corpus = Corpus(rng=rng)
+    max_iters = max(int(limit / demo_spin.INSNS_PER_ITER * 1.1), 1)
+    corpus.add(struct.pack("<I", max(max_iters // 2, 1)))
+    mutator = CappedSpin(best_mangle_mutator(rng, max_len=4), max_iters)
+    return FuzzLoop(backend, demo_spin.TARGET, mutator, corpus,
+                    registry=registry)
+
+
+def phase_spin(k1: dict, k2: dict, record: dict) -> None:
+    """bench.py's deep workload: a warm-up batch, with K1 rounds
+    SPIN_WINDOW of it traced by torch.profiler, then unprofiled batches
+    for SPIN_SECONDS.  A profiled batch runs ~3x slower than a plain one,
+    so only that window is traced; the host share is 1 - the card's busy
+    time in the traced window / the wall of the same rounds of the first
+    timed batch (host clock before each K1 launch)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from wtf_tpu_torch.interp import pstep
+
+    for key in pstep.LAUNCHES:
+        pstep.LAUNCHES[key] = 0
+    loop = spin_loop("cuda")
+    backend, reg = loop.backend, loop.registry
+    launch = pstep.fused_step
+    stamps, traced, hook = [], {}, {"prof": None}
+
+    def on_trace(prof):
+        t1 = time.perf_counter()
+        traced["busy"], traced["kernels"] = device_busy(prof)
+        traced["read_s"] = time.perf_counter() - t1
+
+    def stamped(*args, **kwargs):
+        stamps.append(time.perf_counter())
+        if hook["prof"] is not None:
+            hook["prof"].step()
+        return launch(*args, **kwargs)
+
+    lo, hi = SPIN_WINDOW
+    pstep.fused_step = stamped
+    try:
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=lo, warmup=1, active=hi - lo,
+                                       repeat=1),
+                     on_trace_ready=on_trace) as prof:
+            hook["prof"] = prof
+            t0 = time.perf_counter()
+            loop.run_one_batch()                # warm-up: decode, trace
+            torch.cuda.synchronize()
+            warm = time.perf_counter() - t0
+            hook["prof"] = None
+        k1_warm = pstep.LAUNCHES["fused_step"]
+        traced_wall = stamps[hi] - stamps[lo]
+        stamps.clear()
+        before = {"i": backend.stats["instructions"],
+                  "c": loop.stats.testcases, "t": loop.stats.timeouts,
+                  "b": backend.stats["batches"],
+                  "spans": {p: reg.spans.seconds(p) for p in SPANS}}
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < SPIN_SECONDS:
+            loop.run_one_batch()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        pstep.fused_step = launch
+    launches = dict(pstep.LAUNCHES)
+    timed_k1 = launches["fused_step"] - k1_warm
+    check("busy" in traced, f"the profiler traced no window of K1 rounds "
+                            f"{lo}-{hi} in the warm-up batch")
+    check(len(stamps) > hi, f"the first timed batch made {len(stamps)} K1 "
+                            f"launches, fewer than {hi}")
+    k1_n, k1_s = (sum(v[i] for n, v in traced["kernels"].items()
+                      if "fused_step_kernel" in n) for i in (0, 1))
+    check(k1_n > 0, "the traced window holds no K1 launch")
+    window_wall = stamps[hi] - stamps[lo]
+    execs = loop.stats.testcases - before["c"]
+    batches = backend.stats["batches"] - before["b"]
+    instr = backend.stats["instructions"] - before["i"]
+    spans = {p: reg.spans.seconds(p) - before["spans"][p] for p in SPANS}
+    rec = target_record("demo_spin", loop, wall, launches)
+    rec.update({"warmup_s": warm, "testcases": execs, "batches": batches,
+                "instructions": instr, "spans": spans,
+                "execs_per_s": execs / wall, "instr_per_s": instr / wall,
+                "timeout_frac": (loop.stats.timeouts - before["t"])
+                / max(execs, 1),
+                "k1_share": spans["execute/fused-step"] / wall,
+                "resume_share": spans["execute/device-step"] / wall,
+                "k1_launches_timed": timed_k1,
+                "rounds_per_s": timed_k1 / wall,
+                "window_rounds": (lo, hi), "window_wall_s": window_wall,
+                "window_wall_traced_s": traced_wall,
+                "trace_read_s": traced["read_s"],
+                "device_busy_window_s": traced["busy"],
+                "host_share": 1 - traced["busy"] / window_wall,
+                "k1_ms_mean_trace": k1_s / k1_n * 1e3,
+                "top_device_window": sorted(
+                    ((n, c, t) for n, (c, t) in traced["kernels"].items()),
+                    key=lambda v: -v[2])[:10]})
+    err, retired, _ = hold_k1(loop, held_batch("demo_spin", loop,
+                                               backend.n_lanes))
+    k1["max_abs_err"] = max(k1["max_abs_err"] or 0, err)
+    print(f"phase 18: demo_spin deep (bench's chip workload at limit "
+          f"{SPIN_LIMIT}, {SPIN_LANES} lanes; warm-up batch {warm:.2f} s "
+          f"with K1 rounds {lo}-{hi} traced: {traced_wall:.2f} s, and "
+          f"{traced['read_s']:.2f} s to read the trace): {batches} batches, "
+          f"{execs} "
+          f"testcases in {wall:.2f} s = {rec['execs_per_s']:.1f} execs/s, "
+          f"{rec['instr_per_s']:.4g} instructions/s; timeout fraction "
+          f"{rec['timeout_frac']:.3f}; K1 launches {launches['fused_step']} "
+          f"({timed_k1} after the warm-up = {timed_k1 / batches:.0f} per "
+          f"batch, {rec['rounds_per_s']:.0f} per s), "
+          f"{rec['k1_ms_mean_trace']:.4f} ms mean (profiler, {k1_n} in the "
+          f"window); K1 share of the wall {rec['k1_share']:.3f}, resume "
+          f"legs {rec['resume_share']:.3f}; the window's rounds took "
+          f"{window_wall:.2f} s unprofiled, card busy {traced['busy']:.3f} s "
+          f"= host share {rec['host_share']:.3f}; fused occupancy "
+          f"{rec['occupancy']:.4f}; breakpoint services "
+          f"{rec['bp_dispatches']}; K1 == plain on a batch start over 2 "
+          f"dispatches (retired {retired}); spans "
+          + ", ".join(f"{k} {v:.2f}" for k, v in spans.items()))
+    k1["launches_by_path"]["demo_spin deep"] = launches["fused_step"]
+    k2["launches_by_path"]["demo_spin deep"] = launches["probe"]
+    record["spin_deep"] = rec
+    del loop, backend
+    torch.cuda.empty_cache()
+
+
+def phase_new_targets_card_vs_cpu(cpu) -> None:
+    for name in NEW_TARGETS + ("demo_spin",):
+        limit = SPIN_SMALL_LIMIT if name == "demo_spin" else 100000
+        card = small_campaign(name, "cuda", limit, seeded=True)
+        want = cpu[name].result()
+        check(all(card[i] == want[i] for i in range(5)),
+              f"64-lane {name} campaign differs between card and cpu")
+        print(f"phase 17: 64-lane 256-run {name} campaign, card == cpu: "
+              f"{len(card[0])} corpus digests, crash names {card[1][:4]}, "
+              f"statuses {card[4]}, equal cov/edge bytes (card "
+              f"{card[5]:.1f} s, cpu {want[5]:.1f} s in a worker process)")
+
+
 def start_cpu_references(pool) -> dict:
-    """The CPU sides of phases 6, 9, 11 and 14, started together in worker
-    processes once the card's timed phases are done."""
+    """The CPU sides of phases 6, 9, 11, 14 and 17, started together in
+    worker processes once the card's timed phases are done."""
     import os
 
     jobs = {"demo_tlv": (small_campaign, "demo_tlv", "cpu"),
@@ -1370,7 +1937,11 @@ def start_cpu_references(pool) -> dict:
             "run demo_kernel": (replay_runs, "demo_kernel", KERNEL_RUNS,
                                 "cpu"),
             "run demo_usermode": (replay_runs, "demo_usermode", USER_RUNS,
-                                  "cpu")}
+                                  "cpu"),
+            "demo_spin": (small_campaign, "demo_spin", "cpu",
+                          SPIN_SMALL_LIMIT, (), True)}
+    for name in NEW_TARGETS:
+        jobs[name] = (small_campaign, name, "cpu", 100000, (), True)
     threads = max(1, (os.cpu_count() or 1) // len(jobs))
     return {key: pool.submit(cpu_job, job[0], threads, *job[1:])
             for key, job in jobs.items()}
@@ -1387,7 +1958,6 @@ def main(argv=None) -> int:
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False")
-    from wtf_tpu_torch.csrc import build
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -1403,23 +1973,30 @@ def main(argv=None) -> int:
     phase_run()
     phase_campaign(k1, k2, record)
     phase_step_sys(dev, record)
-    phase_kernel_campaign(k1, k2, record)
+    kernel_out = phase_kernel_campaign(k1, k2, record)
     window_out = phase_window_campaign(k1, k2, record)
     phase_decode(dev, record)
     phase_dd_window_campaign(k1, k2, record, window_out)
-    # the CPU references of phases 6, 9, 11 and 14 run in worker processes,
-    # after every timed phase, while this process runs their card sides
+    phase_dump(k1, k2, record, kernel_out)
+    phase_targets(k1, k2, record)
+    phase_spin(k1, k2, record)
+    # the CPU references of phases 6, 9, 11, 14 and 17 run in worker
+    # processes, after every timed phase, while this process runs their
+    # card sides
     with ProcessPoolExecutor(
-            max_workers=7, mp_context=multiprocessing.get_context(
+            max_workers=11, mp_context=multiprocessing.get_context(
                 "spawn")) as pool:
         cpu = start_cpu_references(pool)
         phase_card_vs_cpu(cpu)
         phase_targets_card_vs_cpu(cpu)
         card_window = phase_window_card_vs_cpu(cpu)
         phase_dd_card_vs_cpu(cpu, card_window)
+        phase_new_targets_card_vs_cpu(cpu)
 
     kernels = {"kernels": [k1, k2]}
     if args.out is not None:
+        from wtf_tpu_torch.csrc import build
+
         args.out.mkdir(parents=True, exist_ok=True)
         (args.out / "chip_smoke.json").write_text(json.dumps(
             {"card": card, **kernels, **record, "ptxas": build.PTXAS},

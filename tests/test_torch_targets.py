@@ -13,8 +13,9 @@ run on the host oracle in both packages.
   * demo_kernel runs with no oracle fallback; demo_usermode falls back at
     most twice per delivered exception, and only for iretq
   * results repeat across `restore`
-  * a seeded 16-lane campaign on each target: the same corpus digests,
-    crash names, coverage/edge aggregates and device counters
+  * a seeded 16-lane campaign on each target, the reference side with the
+    reference CLI's host mutator rule: the same corpus digests, crash
+    names, coverage/edge aggregates and device counters
   * demo_usermode's stack growth through a faulting PUSH, its undoing by
     `restore`, and a breakpoint handler's injected #PF, with the values
     tests/test_usermode.py pins
@@ -129,15 +130,17 @@ def test_results_repeat_across_restore(name):
 
 @pytest.mark.parametrize("name", ["demo_kernel", "demo_usermode"])
 def test_campaign_matches_tpu_backend(name):
+    from wtf_tpu.cli import _mutator_for
     from wtf_tpu.fuzz.corpus import Corpus
     from wtf_tpu.fuzz.loop import FuzzLoop
-    from wtf_tpu.fuzz.mutator import MangleMutator
     from wtf_tpu_torch import cli
 
     runs, seed, max_len = 32, 7, 24
     jb, jt = _jax_backend(name)
     rng = random.Random(seed)
-    jloop = FuzzLoop(jb, jt, MangleMutator(rng, max_len), Corpus(rng=rng))
+    # the reference CLI's host mutator rule (the native engine when it
+    # builds), which the port's `campaign` follows
+    jloop = FuzzLoop(jb, jt, _mutator_for(jt, rng, max_len), Corpus(rng=rng))
     jloop.fuzz(runs=runs)
     args = cli.build_parser().parse_args(
         ["campaign", "--name", name, "--fused-step", "on", "--lanes",
@@ -145,6 +148,7 @@ def test_campaign_matches_tpu_backend(name):
          "--max_len", str(max_len), "--seed", str(seed), "--device", "cpu"])
     tloop = cli.campaign(args)
     tb = tloop.backend
+    assert type(tloop.mutator).__name__ == type(jloop.mutator).__name__
     assert sorted(jloop.corpus.digests) == sorted(tloop.corpus.digests)
     assert jloop.crash_names == tloop.crash_names
     for f in ("testcases", "crashes", "timeouts", "new_coverage"):

@@ -1,4 +1,4 @@
-"""CLI entry point: `python -m wtf_tpu_torch {run|campaign}`.
+"""CLI entry point: `python -m wtf_tpu_torch {run|campaign|snapshot}`.
 
 The counterpart of wtf_tpu/cli.py for the subcommands this slice carries,
 with the JAX package's flag names and meanings for the subset it supports
@@ -9,13 +9,16 @@ plus `--device`:
   campaign  the single-process fuzz loop over one device batch, with the
             host mutators or the device one (--mutator devmangle), batch
             at a time or in multi-batch windows (--megachunk N)
+  snapshot  convert a snapshot between mem.npz and a Windows crash dump
+            (mem.dmp, bitmap or full)
 
-Both run on a CUDA device by default (`--device cuda`) and raise when
-there is none; `--device cpu` runs the plain PyTorch versions of the
-kernels on the CPU.  `--fused-step on|auto` drives the fused step kernel
+`run` and `campaign` run on a CUDA device by default (`--device cuda`)
+and raise when there is none; `--device cpu` runs the plain PyTorch
+versions of the kernels on the CPU.  `--fused-step on|auto` drives the fused step kernel
 (interp/pstep.py); on a CUDA device both raise when it cannot be built.
 `--device-decode` services decode-cache misses on the device
-(interp/devdec.py).
+(interp/devdec.py).  `--state DIR` loads the snapshot from DIR (mem.npz or
+mem.dmp, regs.json, symbol-store.json) instead of the target's factory.
 """
 
 from __future__ import annotations
@@ -40,6 +43,10 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--target", type=Path, default=None,
                    help="target root dir (inputs/outputs/crashes/state "
                         "default underneath, wtf.cc:48-68)")
+    p.add_argument("--state", type=Path, default=None,
+                   help="snapshot dir (mem.npz or mem.dmp + regs.json); "
+                        "defaults to <target>/state, else the target's "
+                        "own snapshot factory")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a CUDA device), "
                         "cuda:N, or cpu")
@@ -108,6 +115,15 @@ def build_parser() -> argparse.ArgumentParser:
                            "host work collapses to the status pull and "
                            "find harvest.  Needs --mutator devmangle and "
                            "a nonzero --limit; 0 = off")
+
+    snap = sub.add_parser(
+        "snapshot", help="convert snapshots between formats")
+    snap.add_argument("--state", type=Path, required=True,
+                      help="input state dir (mem.npz or mem.dmp + regs.json)")
+    snap.add_argument("--out", type=Path, required=True,
+                      help="output state dir")
+    snap.add_argument("--format", choices=("npz", "dmp-bmp", "dmp-full"),
+                      default="npz")
     return parser
 
 
@@ -121,14 +137,15 @@ def build_backend(target, args, registry: Registry):
     from wtf_tpu_torch.backend.gpu import GpuBackend
     from wtf_tpu_torch.snapshot.loader import load_snapshot
 
-    paths = TargetPaths(target=args.target).resolve()
-    if paths.state and Path(paths.state).exists():
-        snapshot = load_snapshot(paths.state)
-    elif target.snapshot is not None:
-        snapshot = target.snapshot()
-    else:
-        raise SystemExit(f"target {target.name!r} has no snapshot factory "
-                         f"and no state dir was given")
+    paths = TargetPaths(target=args.target, state=args.state).resolve()
+    with registry.spans.span("snapshot-load"):
+        if paths.state and Path(paths.state).exists():
+            snapshot = load_snapshot(paths.state)
+        elif target.snapshot is not None:
+            snapshot = target.snapshot()
+        else:
+            raise SystemExit(f"target {target.name!r} has no snapshot "
+                             f"factory and no --state dir was given")
     backend = GpuBackend(snapshot, n_lanes=args.lanes, limit=args.limit,
                          registry=registry, events=NULL, device=args.device,
                          fused_step=args.fused_step, fused_k=args.fused_k,
@@ -194,12 +211,23 @@ def cmd_run(args) -> int:
     return 0 if crashes == 0 else 2
 
 
+def mutator_for(target, rng: random.Random, max_len: int):
+    """The host mutator of `--mutator auto` (wtf_tpu/cli.py `_mutator_for`):
+    the target's own, else the native mangle engine, else (no g++) the
+    Python one."""
+    from wtf_tpu_torch.fuzz.native_mutator import best_mangle_mutator
+
+    if target.create_mutator is not None:
+        return target.create_mutator(rng, max_len)
+    return best_mangle_mutator(rng, max_len)
+
+
 def campaign(args):
     """`campaign`: seed the corpus, build the mutator from --seed, and run
     the fuzz loop for --runs testcases.  Returns the FuzzLoop."""
     from wtf_tpu_torch.fuzz.corpus import Corpus
     from wtf_tpu_torch.fuzz.loop import FuzzLoop
-    from wtf_tpu_torch.fuzz.mutator import MangleMutator, create_mutator
+    from wtf_tpu_torch.fuzz.mutator import create_mutator
 
     if args.runs <= 0:
         raise SystemExit("--runs must be > 0 (the minset mode of --runs 0 "
@@ -215,10 +243,8 @@ def campaign(args):
         corpus = Corpus(outputs_dir=paths.outputs, rng=rng)
     if args.mutator == "devmangle":
         mutator = create_mutator("devmangle", rng, args.max_len)
-    elif target.create_mutator is not None:
-        mutator = target.create_mutator(rng, args.max_len)
     else:
-        mutator = MangleMutator(rng, args.max_len)
+        mutator = mutator_for(target, rng, args.max_len)
     loop = FuzzLoop(backend, target, mutator, corpus,
                     crashes_dir=paths.crashes, registry=registry,
                     megachunk=args.megachunk)
@@ -233,9 +259,41 @@ def cmd_campaign(args) -> int:
     return 0 if loop.stats.crashes == 0 else 2
 
 
+def cmd_snapshot(args) -> int:
+    """Format conversion: npz <-> Windows crash dump both ways."""
+    import json
+
+    import numpy as np
+
+    from wtf_tpu_torch.snapshot.kdmp import write_kdmp
+    from wtf_tpu_torch.snapshot.loader import (
+        dump_cpu_state_json, load_snapshot,
+    )
+
+    snap = load_snapshot(args.state)
+    args.out.mkdir(parents=True, exist_ok=True)
+    table = snap.physmem.frame_table[0]
+    if args.format == "npz":
+        snap.save_raw(args.out)
+    else:
+        page_data = snap.physmem.pages.view(np.uint8)
+        pages = {int(pfn): page_data[int(table[pfn])].tobytes()
+                 for pfn in np.nonzero(table)[0]}
+        write_kdmp(args.out / "mem.dmp", pages,
+                   dump_type="bmp" if args.format == "dmp-bmp" else "full",
+                   dtb=snap.cpu.cr3, cpu=snap.cpu)
+        (args.out / "regs.json").write_text(dump_cpu_state_json(snap.cpu))
+        (args.out / "symbol-store.json").write_text(json.dumps(
+            {k: hex(v) for k, v in snap.symbols.items()}, indent=1))
+    n_pages = int((table != 0).sum())
+    print(f"wrote {args.format} snapshot ({n_pages} pages) to {args.out}")
+    return 0
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
-    return {"run": cmd_run, "campaign": cmd_campaign}[args.subcommand](args)
+    return {"run": cmd_run, "campaign": cmd_campaign,
+            "snapshot": cmd_snapshot}[args.subcommand](args)
 
 
 def console_main() -> None:

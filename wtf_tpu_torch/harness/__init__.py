@@ -11,6 +11,12 @@
                   bugs (role of the reference's HEVD target)
   demo_usermode.py - guard-page stack growth and SEH dispatch through a
                   real IDT
+  demo_maze.py  - a 4-stage input maze only coverage guidance walks
+  demo_spin.py  - deep execution: the input picks the loop count
+  demo_ioctl.py - in-place IOCTL rewrite with page-end payload placement
+                  (role of the reference's fuzzer_ioctl.cc)
+  demo_fs.py    - file I/O through the faked Nt* calls of guestfs.py
+                  (reference src/wtf/fshooks.cc)
 """
 
 from wtf_tpu_torch.harness.targets import Target, Targets, register_target  # noqa: F401

@@ -110,8 +110,8 @@ def load_builtin_targets() -> None:
     """Import the in-tree demo target modules so their self-registration
     runs (the reference compiles fuzzer_*.cc into the binary; our
     equivalent is importing the harness modules).  The port carries
-    demo_tlv, demo_kernel and demo_usermode so far; the other demos stay
-    in the JAX package."""
+    every demo but demo_pe, which waits for its DLL."""
     from wtf_tpu_torch.harness import (  # noqa: F401
-        demo_kernel, demo_tlv, demo_usermode,
+        demo_fs, demo_ioctl, demo_kernel, demo_maze, demo_spin, demo_tlv,
+        demo_usermode,
     )

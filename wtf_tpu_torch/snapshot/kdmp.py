@@ -1,0 +1,373 @@
+"""Windows kernel crash-dump (`mem.dmp`) parsing and writing.
+
+The reference consumes dumps through the vendored C++ kdmp-parser
+(src/libs/kdmp-parser/src/lib/kdmp-parser.h, used by src/wtf/ram.h:96-152
+and bochscpu_backend.cc:276-279); SURVEY.md §2.6 keeps that component
+native.  Here:
+
+  - the FAST path is wtf_tpu_torch/native/kdmp.cc (C++, mmap + run/bitmap walk)
+    loaded over ctypes, built on demand by wtf_tpu_torch.native.build_library;
+  - the FALLBACK is a pure-Python parser of the same format, so dumps load
+    even without a toolchain;
+  - `write_kdmp` produces valid full/BMP dumps — the test-fixture
+    generator and the synthetic-snapshot -> dmp migration path (the
+    reference has no writer; its dumps come from bdump.js).
+
+Format notes (64-bit dumps; layout documented in the reference headers and
+originally reverse-engineered by the rekall project):
+
+  HEADER64: 'PAGE'+'DU64' magic, DirectoryTableBase @0x10, BugCheckCode
+  @0x38, CONTEXT @0x348 (Rax @+0x78, Rip @+0xf8, Xmm0 @+0x1a0), DumpType
+  @0xf98 (1=full, 5=bmp), data @0x2000.
+  Full dump: PHYSMEM_DESC @0x88 {NumberOfRuns, NumberOfPages} with
+  PHYSMEM_RUN[{BasePage, PageCount}] @0x98; page data packed back-to-back
+  from 0x2000 in run order (PFN holes exist in the run list, not the file).
+  BMP dump: BMP_HEADER64 @0x2000 {'SDMP'/'FDMP'+'DUMP', FirstPage @+0x20,
+  TotalPresentPages @+0x28, Pages @+0x30, Bitmap @+0x38}; page data packed
+  from FirstPage in ascending-PFN bitmap order.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import mmap
+import struct
+from pathlib import Path
+from typing import Dict, Optional
+
+PAGE_SIZE = 0x1000
+
+SIG_PAGE = 0x45474150  # 'PAGE'
+SIG_DU64 = 0x34365544  # 'DU64'
+BMP_SDMP = 0x504D4453  # 'SDMP'
+BMP_FDMP = 0x504D4446  # 'FDMP'
+BMP_DUMP = 0x504D5544  # 'DUMP'
+
+FULL_DUMP = 1
+KERNEL_DUMP = 2
+BMP_DUMP_TYPE = 5
+
+_OFF_DTB = 0x10
+_OFF_BUGCHECK = 0x38
+_OFF_PHYSMEM_DESC = 0x88
+_OFF_PHYSMEM_RUNS = 0x98
+_OFF_CONTEXT = 0x348
+_OFF_DUMPTYPE = 0xF98
+_OFF_DATA = 0x2000
+_CTX_SIZE = 0xF00 - 0x348
+
+# CONTEXT-relative offsets
+_CTX_MXCSR = 0x34
+_CTX_SEGCS = 0x38
+_CTX_EFLAGS = 0x44
+_CTX_RAX = 0x78       # Rax,Rcx,Rdx,Rbx,Rsp,Rbp,Rsi,Rdi,R8..R15
+_CTX_RIP = 0xF8
+_CTX_MXCSR2 = 0x118
+_CTX_XMM0 = 0x1A0
+
+
+class KdmpError(ValueError):
+    pass
+
+
+@dataclasses.dataclass
+class KdmpInfo:
+    dump_type: int
+    dtb: int
+    bugcheck_code: int
+    n_pages: int
+    context_raw: bytes
+
+    def context_registers(self) -> Dict[str, int]:
+        """Decode the useful registers out of the raw CONTEXT record (the
+        reference takes CPU state from regs.json instead; this is for
+        inspection and for dumps captured without bdump)."""
+        ctx = self.context_raw
+        names = ("rax", "rcx", "rdx", "rbx", "rsp", "rbp", "rsi", "rdi",
+                 "r8", "r9", "r10", "r11", "r12", "r13", "r14", "r15")
+        regs = {name: struct.unpack_from("<Q", ctx, _CTX_RAX + i * 8)[0]
+                for i, name in enumerate(names)}
+        regs["rip"] = struct.unpack_from("<Q", ctx, _CTX_RIP)[0]
+        regs["rflags"] = struct.unpack_from("<I", ctx, _CTX_EFLAGS)[0]
+        regs["mxcsr"] = struct.unpack_from("<I", ctx, _CTX_MXCSR)[0]
+        for i, seg in enumerate(("cs", "ds", "es", "fs", "gs", "ss")):
+            regs[seg] = struct.unpack_from("<H", ctx, _CTX_SEGCS + i * 2)[0]
+        return regs
+
+
+# ---------------------------------------------------------------------------
+# native fast path
+# ---------------------------------------------------------------------------
+
+_NATIVE: Optional[ctypes.CDLL] = None
+_NATIVE_TRIED = False
+
+
+def _native_lib() -> Optional[ctypes.CDLL]:
+    global _NATIVE, _NATIVE_TRIED
+    if _NATIVE_TRIED:
+        return _NATIVE
+    _NATIVE_TRIED = True
+    from wtf_tpu_torch.native import build_library
+
+    path = build_library("wtfkdmp", ["kdmp.cc"])
+    if path is None:
+        return None
+    lib = ctypes.CDLL(str(path))
+    lib.wtf_kdmp_open.restype = ctypes.c_void_p
+    lib.wtf_kdmp_open.argtypes = [ctypes.c_char_p]
+    lib.wtf_kdmp_close.argtypes = [ctypes.c_void_p]
+    lib.wtf_kdmp_dump_type.restype = ctypes.c_uint32
+    lib.wtf_kdmp_dump_type.argtypes = [ctypes.c_void_p]
+    lib.wtf_kdmp_n_pages.restype = ctypes.c_uint64
+    lib.wtf_kdmp_n_pages.argtypes = [ctypes.c_void_p]
+    lib.wtf_kdmp_pages.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_uint64),
+        ctypes.POINTER(ctypes.c_uint64)]
+    lib.wtf_kdmp_dtb.restype = ctypes.c_uint64
+    lib.wtf_kdmp_dtb.argtypes = [ctypes.c_void_p]
+    lib.wtf_kdmp_bugcheck_code.restype = ctypes.c_uint32
+    lib.wtf_kdmp_bugcheck_code.argtypes = [ctypes.c_void_p]
+    lib.wtf_kdmp_context.restype = ctypes.c_int
+    lib.wtf_kdmp_context.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_uint8), ctypes.c_uint64]
+    _NATIVE = lib
+    return lib
+
+
+def _parse_native(path: Path):
+    lib = _native_lib()
+    if lib is None:
+        return None
+    handle = lib.wtf_kdmp_open(str(path).encode())
+    if not handle:
+        return None  # let the python path produce the precise error
+    try:
+        n = lib.wtf_kdmp_n_pages(handle)
+        pfns = (ctypes.c_uint64 * n)()
+        offsets = (ctypes.c_uint64 * n)()
+        lib.wtf_kdmp_pages(handle, pfns, offsets)
+        ctx = (ctypes.c_uint8 * _CTX_SIZE)()
+        lib.wtf_kdmp_context(handle, ctx, _CTX_SIZE)
+        info = KdmpInfo(
+            dump_type=lib.wtf_kdmp_dump_type(handle),
+            dtb=lib.wtf_kdmp_dtb(handle),
+            bugcheck_code=lib.wtf_kdmp_bugcheck_code(handle),
+            n_pages=n,
+            context_raw=bytes(ctx),
+        )
+        index = [(int(pfns[i]), int(offsets[i])) for i in range(n)]
+        return info, index
+    finally:
+        lib.wtf_kdmp_close(handle)
+
+
+# ---------------------------------------------------------------------------
+# pure-python fallback
+# ---------------------------------------------------------------------------
+
+def _parse_python(data) -> tuple:
+    try:
+        return _parse_python_inner(data)
+    except (IndexError, struct.error) as e:
+        # corrupt headers pointing outside the file surface as the module's
+        # declared error type, matching the native parser's bounds checks
+        raise KdmpError(f"corrupt dump header: {e}") from e
+
+
+def _parse_python_inner(data) -> tuple:
+    def u32(off):
+        return struct.unpack_from("<I", data, off)[0]
+
+    def u64(off):
+        return struct.unpack_from("<Q", data, off)[0]
+
+    if len(data) < _OFF_DATA:
+        raise KdmpError("file too small for a 64-bit dump header")
+    if u32(0) != SIG_PAGE or u32(4) != SIG_DU64:
+        raise KdmpError("bad signature (not a 64-bit kernel crash dump)")
+    dump_type = u32(_OFF_DUMPTYPE)
+    index = []
+    if dump_type == FULL_DUMP:
+        nruns = u32(_OFF_PHYSMEM_DESC)
+        if nruns == SIG_PAGE or nruns > 4096:
+            raise KdmpError("invalid physmem descriptor")
+        file_off = _OFF_DATA
+        for i in range(nruns):
+            base = u64(_OFF_PHYSMEM_RUNS + i * 16)
+            count = u64(_OFF_PHYSMEM_RUNS + i * 16 + 8)
+            for p in range(count):
+                if file_off + PAGE_SIZE > len(data):
+                    raise KdmpError("truncated full dump")
+                index.append((base + p, file_off))
+                file_off += PAGE_SIZE
+    elif dump_type == BMP_DUMP_TYPE:
+        sig = u32(_OFF_DATA)
+        if sig not in (BMP_SDMP, BMP_FDMP) or u32(_OFF_DATA + 4) != BMP_DUMP:
+            raise KdmpError("bad BMP dump header")
+        first_page = u64(_OFF_DATA + 0x20)
+        total_present = u64(_OFF_DATA + 0x28)
+        bitmap_pages = u64(_OFF_DATA + 0x30)
+        bitmap_off = _OFF_DATA + 0x38
+        if bitmap_off + bitmap_pages // 8 > len(data):
+            raise KdmpError("bitmap extends past end of file")
+        file_off = first_page
+        for byte_idx in range(bitmap_pages // 8):
+            byte = data[bitmap_off + byte_idx]
+            if not byte:
+                continue
+            for bit in range(8):
+                if not (byte >> bit) & 1:
+                    continue
+                if file_off + PAGE_SIZE > len(data):
+                    raise KdmpError("truncated BMP dump")
+                index.append((byte_idx * 8 + bit, file_off))
+                file_off += PAGE_SIZE
+        if len(index) != total_present:
+            raise KdmpError(
+                f"bitmap/total mismatch ({len(index)} != {total_present})")
+    elif dump_type == KERNEL_DUMP:
+        raise KdmpError("partial kernel dumps are not supported "
+                        "(use full or active/BMP dumps, as the reference)")
+    else:
+        raise KdmpError(f"unknown dump type {dump_type}")
+    info = KdmpInfo(
+        dump_type=dump_type,
+        dtb=u64(_OFF_DTB),
+        bugcheck_code=u32(_OFF_BUGCHECK),
+        n_pages=len(index),
+        context_raw=bytes(data[_OFF_CONTEXT:_OFF_CONTEXT + _CTX_SIZE]),
+    )
+    return info, index
+
+
+# ---------------------------------------------------------------------------
+# public API
+# ---------------------------------------------------------------------------
+
+def parse_kdmp_info(path) -> KdmpInfo:
+    """Header-only parse (dump type, DTB, bugcheck, context, page count)."""
+    return _parse(Path(path))[0]
+
+
+def parse_kdmp(path) -> Dict[int, bytes]:
+    """Parse a dump into {pfn: 4KiB page bytes} (the shape
+    snapshot.loader/PhysMem.from_pages consume).  One mmap serves both the
+    (fallback) header parse and the page slicing."""
+    path = Path(path)
+    native = _parse_native(path)
+    pages: Dict[int, bytes] = {}
+    with open(path, "rb") as f:
+        with mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ) as m:
+            _, index = native if native is not None else _parse_python(m)
+            for pfn, off in index:
+                pages[pfn] = bytes(m[off:off + PAGE_SIZE])
+    return pages
+
+
+def _parse(path: Path):
+    native = _parse_native(path)
+    if native is not None:
+        return native
+    with open(path, "rb") as f:
+        with mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ) as m:
+            return _parse_python(m)
+
+
+# ---------------------------------------------------------------------------
+# writer (fixtures + synthetic -> dmp migration)
+# ---------------------------------------------------------------------------
+
+def write_kdmp(path, pages: Dict[int, bytes], dump_type: str = "bmp",
+               dtb: int = 0, cpu=None, bugcheck_code: int = 0) -> None:
+    """Write a valid 64-bit dump.  `pages` maps pfn -> 4KiB bytes;
+    `dump_type` is 'full' or 'bmp'; `cpu` (a CpuState) fills the CONTEXT
+    record when given."""
+    header = bytearray(_OFF_DATA)
+    struct.pack_into("<II", header, 0, SIG_PAGE, SIG_DU64)
+    struct.pack_into("<II", header, 8, 15, 19041)  # plausible major/minor
+    struct.pack_into("<Q", header, _OFF_DTB, dtb)
+    struct.pack_into("<I", header, _OFF_BUGCHECK, bugcheck_code)
+    _write_context(header, cpu)
+
+    pfns = sorted(pages)
+    for pfn in pfns:
+        if len(pages[pfn]) != PAGE_SIZE:
+            raise ValueError(f"page {pfn:#x} is not 4KiB")
+
+    if dump_type == "full":
+        struct.pack_into("<I", header, _OFF_DUMPTYPE, FULL_DUMP)
+        runs = _runs_of(pfns)
+        if _OFF_PHYSMEM_RUNS + len(runs) * 16 > _OFF_CONTEXT:
+            raise ValueError(f"too many physmem runs ({len(runs)})")
+        struct.pack_into("<IIQ", header, _OFF_PHYSMEM_DESC,
+                         len(runs), 0, len(pfns))
+        for i, (base, count) in enumerate(runs):
+            struct.pack_into("<QQ", header, _OFF_PHYSMEM_RUNS + i * 16,
+                             base, count)
+        with open(path, "wb") as f:
+            f.write(header)
+            for pfn in pfns:
+                f.write(pages[pfn])
+    elif dump_type == "bmp":
+        struct.pack_into("<I", header, _OFF_DUMPTYPE, BMP_DUMP_TYPE)
+        bitmap_pages = ((pfns[-1] + 8) // 8 * 8) if pfns else 0
+        bitmap = bytearray(bitmap_pages // 8)
+        for pfn in pfns:
+            bitmap[pfn // 8] |= 1 << (pfn % 8)
+        # page data starts page-aligned after the bitmap
+        first_page = (_OFF_DATA + 0x38 + len(bitmap) + PAGE_SIZE - 1) \
+            // PAGE_SIZE * PAGE_SIZE
+        bmp = bytearray(first_page - _OFF_DATA)
+        struct.pack_into("<II", bmp, 0, BMP_SDMP, BMP_DUMP)
+        struct.pack_into("<QQQ", bmp, 0x20,
+                         first_page, len(pfns), bitmap_pages)
+        bmp[0x38:0x38 + len(bitmap)] = bitmap
+        with open(path, "wb") as f:
+            f.write(header)
+            f.write(bmp)
+            for pfn in pfns:
+                f.write(pages[pfn])
+    else:
+        raise ValueError(f"dump_type must be 'full' or 'bmp', not "
+                         f"{dump_type!r}")
+
+
+def _write_context(header: bytearray, cpu) -> None:
+    """Fill the CONTEXT record (MxCsr mirrored into MxCsr2 — parsers
+    integrity-check that, reference CONTEXT::LooksGood)."""
+    base = _OFF_CONTEXT
+    mxcsr = 0x1F80
+    if cpu is not None:
+        order = ("rax", "rcx", "rdx", "rbx", "rsp", "rbp", "rsi", "rdi",
+                 "r8", "r9", "r10", "r11", "r12", "r13", "r14", "r15")
+        for i, name in enumerate(order):
+            struct.pack_into("<Q", header, base + _CTX_RAX + i * 8,
+                             getattr(cpu, name))
+        struct.pack_into("<Q", header, base + _CTX_RIP, cpu.rip)
+        struct.pack_into("<I", header, base + _CTX_EFLAGS,
+                         cpu.rflags & 0xFFFFFFFF)
+        # segment selectors (CONTEXT order: cs ds es fs gs ss) — found
+        # missing by the reference-parser differential (test_kdmp.py)
+        for i, seg in enumerate(("cs", "ds", "es", "fs", "gs", "ss")):
+            struct.pack_into("<H", header, base + _CTX_SEGCS + i * 2,
+                             getattr(cpu, seg).selector & 0xFFFF)
+        mxcsr = getattr(cpu, "mxcsr", mxcsr)
+        for i in range(16):
+            struct.pack_into("<QQ", header, base + _CTX_XMM0 + i * 16,
+                             cpu.zmm[i][0] & ((1 << 64) - 1),
+                             cpu.zmm[i][1] & ((1 << 64) - 1))
+    struct.pack_into("<I", header, base + _CTX_MXCSR, mxcsr)
+    struct.pack_into("<I", header, base + _CTX_MXCSR2, mxcsr)
+
+
+def _runs_of(pfns):
+    """Consecutive-PFN ranges -> [(base, count)]."""
+    runs = []
+    for pfn in pfns:
+        if runs and runs[-1][0] + runs[-1][1] == pfn:
+            runs[-1][1] += 1
+        else:
+            runs.append([pfn, 1])
+    return [tuple(r) for r in runs]

@@ -5,10 +5,9 @@ README.md:168-240): guest memory (`mem.dmp`) + registers (`regs.json`) +
 symbols (`symbol-store.json`) living in a target's `state/` directory
 (wtf.cc:127-129).  This module loads any of:
 
-  - `mem.npz`   — the raw packed format used by synthetic snapshots/tests.
-
-Windows crash dumps (`mem.dmp`, wtf_tpu/snapshot/kdmp.py in the JAX
-package) are not carried over yet: loading one raises.
+  - `mem.dmp`   — Windows kernel crash-dump, parsed by wtf_tpu_torch.snapshot.kdmp
+                  (kdmp-parser equivalent; see native/ for the C++ fast path),
+  - `mem.npz`   — the raw packed format used by synthetic snapshots/tests,
 
 into a `Snapshot{PhysMem, CpuState, symbols}` ready for device upload.
 """
@@ -43,7 +42,7 @@ class Snapshot:
         """Persist in the raw format (mem.npz + regs.json + symbol-store.json)."""
         state_dir = Path(state_dir)
         state_dir.mkdir(parents=True, exist_ok=True)
-        pages_np = self.physmem.pages.view(np.uint8)
+        pages_np = self.physmem.pages
         table_np = self.physmem.frame_table[0]
         pfns = np.nonzero(table_np)[0]
         slots = table_np[pfns]
@@ -81,9 +80,9 @@ def load_snapshot(state_dir, sanitize: bool = True) -> Snapshot:
             for pfn, page in zip(data["pfns"], data["pages"])
         }
     elif dmp_path.exists():
-        raise NotImplementedError(
-            f"{dmp_path}: crash-dump snapshots are not supported by "
-            f"wtf_tpu_torch yet (use the raw mem.npz format)")
+        from wtf_tpu_torch.snapshot.kdmp import parse_kdmp
+
+        pages = parse_kdmp(dmp_path)
     else:
         raise FileNotFoundError(f"no mem.npz or mem.dmp under {state_dir}")
 
