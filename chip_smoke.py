@@ -7,9 +7,11 @@ Phases (each prints one line; any failure exits non-zero):
   1. the card's name and power limit (nvidia-smi); build both hand-written
      kernels from csrc/ (one nvcc each, started together)
   2. launch the availability probe kernel (K2) and check it returns 1,
-     and time an empty kernel from the same source (the launch floor, K2's
-     honest bound); phase 1 prints K1's ptxas report, its shared bytes per
-     block and the warps one SM holds (the CUDA occupancy calculator)
+     and time it and an empty kernel from the same source (the launch
+     floor, K2's honest bound) alike, as raw launches, each after a
+     warm-up call (K2 through its wrapper and `x + 1` are timed too);
+     phase 1 prints K1's ptxas report, its shared bytes per block and the
+     warps one SM holds (the CUDA occupancy calculator)
   3. the fused step kernel (K1) against its plain PyTorch version at 4096
      lanes, k=32, on seeded random machines (hot register grids, memory and
      stack forms, page crossings, park causes, a breakpoint with bp_skip,
@@ -105,10 +107,30 @@ Phases (each prints one line; any failure exits non-zero):
      instructions/s, timeout fraction, K1 launches per batch and per
      second, K1's and the resume legs' shares of the wall, the host
      share of the traced rounds against their unprofiled wall
+ 19. the precise step's SSE, SSE-FP and x87 classes on the card against
+     the CPU: 4096 seeded random lanes whose next instruction is one of
+     ~170 forms (moves and merges, the byte ALU, every SSE-FP op at f32
+     and f64, packed and scalar, the converts, VZEROALL, x87 arithmetic
+     on memory and st(i), loads, stores, fist under each rounding mode,
+     compares and control ops), with operands from the FP value sets
+     (signed zeros, infinities, NaN payloads, denormals, products that
+     are denormal or underflow, +-2**63) and memory operands at a page
+     end; a few steps of `step` on each: every plane bit-identical, the
+     status plane (the denormal divert set) included; ms per step, with
+     and without the FP groups
+ 20. the fused step parking at FP code, at full width: a Runner with
+     --fused-step on at 4096 lanes x 128 overlay rows on a loop mixing
+     integer code, an SSE copy and zeroing, SSE FP and x87 arithmetic,
+     trip counts 1-12 per lane; counts zeroed just before and read just
+     after: K1 launched and parked lanes at the FP classes, no SSE or
+     x87 fallback, every lane terminal; K1 launches, resume legs,
+     instructions, wall, the legs' share, device peak; the same batch
+     on the CPU (a worker process, burst_any_tier on on both sides):
+     every plane and the copy pages equal
 
 Phase 8 fails unless its host mutator is the native engine (the one the
 reference CLI picks).  Every phase always runs, at the sizes above.
-Phases 6, 9, 11, 14 and 17 run
+Phases 6, 9, 11, 14 and 17 and phase 20's comparison run
 last, after the timed phases: their CPU sides run in worker processes started
 together (spawned, and joined before the script ends) while this process
 runs their card sides.  The card's nvidia-smi line
@@ -262,6 +284,131 @@ SYS_CODE = bytes.fromhex(
 SYS_CODE_GVA = 0x0001_5000_0000
 SYS_STEPS = 6
 
+# Phase 19's guest: the SSE, SSE-FP and x87 forms of the precise step, one
+# after another (GNU as, Intel syntax; ` ; ` separates instructions).
+FP_ASM = """
+top: movdqu xmm0, [rbx] ; movdqa xmm1, xmm2 ; movups [rbx], xmm3
+     movss xmm4, [rbx] ; movsd xmm5, xmm6 ; movss xmm7, xmm8
+     movq xmm9, rax ; movd xmm10, ecx ; movq rdx, xmm11 ; movd esi, xmm12
+     movq xmm13, [rbx] ; movlps xmm14, [rbx] ; movhps xmm15, [rbx]
+     movhlps xmm0, xmm1 ; movlhps xmm2, xmm3 ; movlps [rbx], xmm4
+     movhps [rbx], xmm5 ; movsd [rbx], xmm6 ; movss [rbx], xmm7
+     pxor xmm0, xmm1 ; xorps xmm2, [rbx] ; por xmm3, xmm4 ; pand xmm5, xmm6
+     pandn xmm7, xmm8 ; pcmpeqb xmm9, xmm10 ; pcmpeqw xmm11, [rbx]
+     pcmpeqd xmm12, xmm13 ; psubb xmm14, xmm15 ; paddb xmm0, [rbx]
+     pminub xmm1, xmm2 ; punpcklqdq xmm3, xmm4 ; pshufd xmm5, xmm6, 0x1b
+     pslldq xmm7, 3 ; psrldq xmm8, 13 ; punpckldq xmm9, [rbx]
+     paddq xmm10, [rbx] ; psllq xmm11, 5 ; psrlq xmm12, 63 ; psllq xmm13, 64
+     pinsrw xmm14, eax, 3 ; pinsrw xmm15, word ptr [rbx], 1
+     pextrw ecx, xmm0, 5 ; pmovmskb edx, xmm1 ; ptest xmm2, xmm3
+     addss xmm0, xmm1 ; addsd xmm2, [rbx] ; addps xmm3, xmm4
+     addpd xmm5, [rbx] ; subss xmm6, [rbx] ; subsd xmm7, xmm8
+     subps xmm9, [rbx] ; subpd xmm10, xmm11 ; mulss xmm12, xmm13
+     mulsd xmm14, [rbx] ; mulps xmm15, xmm0 ; mulpd xmm1, xmm2
+     divss xmm3, [rbx] ; divsd xmm4, xmm5 ; divps xmm6, xmm7
+     divpd xmm8, [rbx] ; minss xmm9, xmm10 ; minsd xmm11, [rbx]
+     minps xmm12, xmm13 ; minpd xmm14, xmm15 ; maxss xmm0, [rbx]
+     maxsd xmm1, xmm2 ; maxps xmm3, [rbx] ; maxpd xmm4, xmm5
+     sqrtss xmm6, xmm7 ; sqrtsd xmm8, [rbx] ; sqrtps xmm9, xmm10
+     sqrtpd xmm11, xmm12 ; cmpeqss xmm13, xmm14 ; cmpltsd xmm15, [rbx]
+     cmpleps xmm0, xmm1 ; cmpunordpd xmm2, xmm3 ; cmpneqsd xmm4, xmm5
+     cmpnltss xmm6, [rbx] ; cmpnlepd xmm7, xmm8 ; cmpordps xmm9, xmm10
+     ucomiss xmm11, xmm12 ; ucomisd xmm13, [rbx] ; comiss xmm14, [rbx]
+     comisd xmm15, xmm0
+     cvtsi2ss xmm1, eax ; cvtsi2ss xmm2, rcx ; cvtsi2sd xmm3, eax
+     cvtsi2sd xmm4, rcx ; cvtsi2sd xmm5, dword ptr [rbx]
+     cvtsi2ss xmm6, qword ptr [rbx]
+     cvtss2si eax, xmm7 ; cvtsd2si rcx, xmm8 ; cvttss2si rdx, xmm9
+     cvttsd2si esi, xmm10 ; cvtsd2si eax, [rbx] ; cvttss2si rcx, [rbx]
+     cvtss2sd xmm11, xmm12 ; cvtsd2ss xmm13, [rbx] ; cvtps2pd xmm14, xmm15
+     cvtpd2ps xmm0, [rbx] ; cvtdq2ps xmm1, xmm2 ; cvtps2dq xmm3, [rbx]
+     cvttps2dq xmm4, xmm5 ; cvtdq2pd xmm6, xmm7 ; cvtpd2dq xmm8, xmm9
+     cvttpd2dq xmm10, [rbx] ; shufps xmm11, xmm12, 0x4e
+     shufpd xmm13, [rbx], 1 ; unpcklps xmm14, xmm15 ; unpckhps xmm0, [rbx]
+     unpcklpd xmm1, xmm2 ; unpckhpd xmm3, xmm4
+     vaddsd xmm5, xmm5, xmm6 ; vsqrtsd xmm7, xmm7, xmm8 ; vucomisd xmm9, xmm10
+     vzeroupper ; vzeroall
+     fadd dword ptr [rbx] ; fmul qword ptr [rbx] ; fsub dword ptr [rbx]
+     fsubr qword ptr [rbx] ; fdiv dword ptr [rbx] ; fdivr qword ptr [rbx]
+     fcom qword ptr [rbx] ; fcomp dword ptr [rbx]
+     fadd st, st(3) ; fmul st(2), st ; fsub st, st(1) ; fdivr st(4), st
+     faddp st(1), st ; fsubp st(2), st ; fdivrp st(1), st ; fmulp st(3), st
+     fld dword ptr [rbx] ; fld qword ptr [rbx] ; fild word ptr [rbx]
+     fild dword ptr [rbx] ; fild qword ptr [rbx] ; fld st(2) ; fld1 ; fldz
+     fst dword ptr [rbx] ; fstp qword ptr [rbx] ; fst st(3) ; fstp st(1)
+     fist word ptr [rbx] ; fist dword ptr [rbx] ; fistp word ptr [rbx]
+     fistp dword ptr [rbx] ; fistp qword ptr [rbx] ; fisttp dword ptr [rbx]
+     fisttp qword ptr [rbx] ; fxch st(3) ; fchs ; fabs
+     fcomi st, st(2) ; fucomi st, st(1) ; fcomip st, st(3) ; fucom st(1)
+     fucompp ; fnstsw ax ; fnstsw [rbx] ; fnstcw [rbx] ; fldcw [rbx]
+     fnclex ; ffree st(2) ; stmxcsr [rbx] ; ldmxcsr [rbx] ; emms ; fninit
+     fxsave [rbx]
+     jmp top
+"""
+FP_CODE = bytes.fromhex(
+    "f30f6f03660f6fca0f111bf30f1023f20f10eef3410f10f8664c0f6ec866440f"
+    "6ed1664c0f7eda66440f7ee6f3440f7e2b440f1233440f163b0f12c10f16d30f"
+    "13230f172bf20f1133f30f113b660fefc10f5713660febdc660fdbee66410fdf"
+    "f866450f74ca66440f751b66450f76e566450ff8f7660ffc03660fdaca660f6c"
+    "dc660f70ee1b660f73ff0366410f73d80d66440f620b66440fd41366410f73f3"
+    "0566410f73d43f66410f73f54066440fc4f00366440fc43b01660fc5c805660f"
+    "d7d1660f3817d3f30f58c1f20f58130f58dc660f582bf30f5c33f2410f5cf844"
+    "0f5c0b66450f5cd3f3450f59e5f2440f5933440f59f8660f59caf30f5e1bf20f"
+    "5ee50f5ef766440f5e03f3450f5dcaf2440f5d1b450f5de566450f5df7f30f5f"
+    "03f20f5fca0f5f1b660f5fe5f30f51f7f2440f5103450f51ca66450f51dcf345"
+    "0fc2ee00f2440fc23b010fc2c102660fc2d303f20fc2e504f30fc2330566410f"
+    "c2f806450fc2ca07450f2edc66440f2e2b440f2f3366440f2ff8f30f2ac8f348"
+    "0f2ad1f20f2ad8f2480f2ae1f20f2a2bf3480f2a33f30f2dc7f2490f2dc8f349"
+    "0f2cd1f2410f2cf2f20f2d03f3480f2c0bf3450f5adcf2440f5a2b450f5af766"
+    "0f5a030f5bca660f5b1bf30f5be5f30fe6f7f2450fe6c166440fe613450fc6dc"
+    "4e66440fc62b01450f14f70f1503660f14ca660f15dcc5d358eec4c14351f8c4"
+    "41792ecac5f877c5fc77d803dc0bd823dc2bd833dc3bdc13d81bd8c3dccad8e1"
+    "dcf4dec1deeadef1decbd903dd03df03db03df2bd9c2d9e8d9eed913dd1bddd3"
+    "ddd9df13db13df1bdb1bdf3bdb0bdd0bd9cbd9e0d9e1dbf2dbe9dff3dde1dae9"
+    "dfe0dd3bd93bd92bdbe2ddc20fae1b0fae130f77dbe30fae03e982fdffff")
+FP_CODE_GVA = 0x0001_6000_0000
+FP_STEPS = 6
+# the operand values of tests/test_ssefp.py and tests/test_x87.py: signed
+# zeros and infinities, NaNs with payloads, denormals, normals, values
+# whose products are denormal or underflow, +-2**63 and the 2**31 edge
+F64_VALUES = [
+    0x0, 0x8000000000000000, 0x7FF0000000000000, 0xFFF0000000000000,
+    0x7FF8000000001234, 0x7FF0000000000BAD, 0xFFF8000000000000, 0x1,
+    0x800FFFFFFFFFFFFF, 0x0010000000000000, 0x7FEFFFFFFFFFFFFF,
+    0x3FF0000000000000, 0x4000000000000000, 0x3FE0000000000000,
+    0xC045000000000000, 0x400921FB54442D18, 0x2000000000000000,
+    0x1FF0000000000000, 0x3C90000000000000, 0x43E0000000000000,
+    0xC3E0000000000000, 0x43DFFFFFFFFFFFFF, 0x41E0000000000000,
+    0x41DFFFFFFFE00000, 0x4004000000000000, 0xC004000000000000]
+F32_VALUES = [
+    0x0, 0x80000000, 0x7F800000, 0xFF800000, 0x7FC00123, 0x7F800001,
+    0xFFC00000, 0x1, 0x807FFFFF, 0x00800000, 0x7F7FFFFF, 0x3F800000,
+    0x40000000, 0x3F000000, 0xC2280000, 0x40490FDB, 0x20000000,
+    0x1F800000, 0x5F000000, 0xDF000000, 0x4F000000, 0x40200000]
+INT_VALUES = [0, 1, -1, 2**31 - 1, -2**31, 2**63 - 1, -2**63,
+              12345678901234567, 0x7FFF_FFFF_FFFF_FC00]
+
+# Phase 20's guest: a loop of integer code, an SSE copy and zeroing, SSE
+# FP and x87 arithmetic; rcx is its trip count (GNU as, Intel syntax).
+FPLOOP_ASM = """
+top: add r8, rcx ; imul r9, r8, 0x9e37 ; xor r10, r9 ; lea rdx, [r8 + r9*2]
+     movdqu xmm0, [rbx] ; movdqu xmm1, [rbx + 16] ; movdqu [rdi], xmm0
+     movdqu [rdi + 16], xmm1 ; pxor xmm2, xmm2 ; movdqu [rdi + 32], xmm2
+     cvtsi2sd xmm3, r8 ; mulsd xmm3, [rsi] ; divsd xmm3, [rsi + 8]
+     sqrtsd xmm4, xmm3 ; cvttsd2si rax, xmm4 ; add r11, rax
+     mov [rdi + 48], r8 ; fild qword ptr [rdi + 48]
+     fmul qword ptr [rsi + 16] ; fistp qword ptr [rdi + 56] ; fnstsw ax
+     add r12, [rdi + 56] ; add rbx, 8 ; dec rcx ; jnz top
+     int3
+"""
+FPLOOP_CODE = bytes.fromhex(
+    "4901c84d69c8379e00004d31ca4b8d1448f30f6f03f30f6f4b10f30f7f07f30f"
+    "7f4f10660fefd2f30f7f5720f2490f2ad8f20f591ef20f5e5e08f20f51e3f248"
+    "0f2cc44901c34c894730df6f30dc4e10df7f38dfe04c0367384883c30848ffc9"
+    "759ecc")
+FPLOOP_GVA = 0x0001_7000_0000
+FPLOOP_CONSTS = (1.5, 3.0, 0.25)
+
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
@@ -284,9 +431,13 @@ def gpu_line() -> str:
 
 def cuda_ms(fn, reps: int, setup=None) -> float:
     """Mean device milliseconds of fn() over reps runs (CUDA events around
-    each call; `setup` runs untimed before each)."""
+    each call; `setup` runs untimed before each), after one untimed
+    warm-up call, so a first launch's cost is not in the mean."""
     import torch
 
+    if setup is not None:
+        setup()
+    fn()
     total = 0.0
     for _ in range(reps):
         if setup is not None:
@@ -509,6 +660,138 @@ def sys_state(n_lanes: int, seed: int, dev):
     return r, m
 
 
+def fp_state(n_lanes: int, seed: int, dev):
+    """(runner, machine) of n_lanes random lanes of the phase-19 guest,
+    each at a random instruction of it: xmm registers, x87 slots and data
+    pages from the FP value sets, a random stack top, tag word and
+    rounding control, integers for the converts, and on a quarter of the
+    lanes a memory operand at the end of the data pages (the page after
+    them is not mapped)."""
+    import random
+    import struct
+
+    import torch
+
+    from wtf_tpu_torch.core.results import StatusCode
+    from wtf_tpu_torch.interp.runner import Runner
+    from wtf_tpu_torch.snapshot.loader import Snapshot
+    from wtf_tpu_torch.snapshot.synthetic import SyntheticSnapshotBuilder
+
+    rng = random.Random(seed)
+    words = [rng.choice(F64_VALUES) if rng.random() < 0.5 else
+             rng.choice(F32_VALUES) | rng.choice(F32_VALUES) << 32
+             for _ in range(0x4000 // 8)]
+    b = SyntheticSnapshotBuilder()
+    b.write(FP_CODE_GVA, FP_CODE)
+    b.write(GRID_DATA_GVA, struct.pack(f"<{len(words)}Q", *words))
+    b.map(GRID_STACK_TOP - 0x8000, 0x9000)
+    pages, cpu = b.build(rip=FP_CODE_GVA, rsp=GRID_STACK_TOP - 0x1000)
+    r = Runner(Snapshot.from_pages(pages, cpu), n_lanes=n_lanes,
+               overlay_slots=16, device=dev)
+    rips = decode_all(r, r.view(), FP_CODE, FP_CODE_GVA)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    m = r.machine
+    n = n_lanes
+
+    def rint(lo, hi, shape=(n,)):
+        return torch.randint(lo, hi, shape, generator=g, device=dev)
+
+    def pick(values, shape=(n,)):
+        v = torch.tensor([s64(x) for x in values], dtype=torch.int64,
+                         device=dev)
+        return v[rint(0, len(values), shape)]
+
+    m.rip = pick(rips)
+    half = (n, 16, 2)
+    f32x2 = pick(F32_VALUES, half) | (pick(F32_VALUES, half) << 32)
+    vals = torch.where(rint(0, 2, half) == 0, pick(F64_VALUES, half), f32x2)
+    vals = torch.where(rint(0, 8, half) == 0, rint(-2**63, 2**63 - 1, half),
+                       vals)
+    m.xmm = torch.cat([vals, rint(-2**63, 2**63 - 1, half)], 2)
+    m.fpst = pick(F64_VALUES, (n, 8))
+    m.fpsw = (rint(0, 1 << 16) & ~0x3800) | (rint(0, 8) << 11)
+    m.fpcw = 0x27F | (rint(0, 4) << 10)
+    m.fptw = rint(0, 1 << 16)
+    m.gpr = rint(-2**63, 2**63 - 1, (n, 16))
+    m.gpr[:, 0] = pick(INT_VALUES)
+    m.gpr[:, 1] = pick(INT_VALUES)
+    m.gpr[:, 3] = torch.where(rint(0, 4) == 0,
+                              GRID_DATA_GVA + 0x4000 - rint(1, 20),
+                              GRID_DATA_GVA + rint(0, 0x3FF0))      # rbx
+    m.gpr[:, 4] = GRID_STACK_TOP - 0x1000 - 8 * rint(0, 64)        # rsp
+    m.rflags = (rint(0, 1 << 12) | 2) | (rint(0, 1 << 20) << 32)
+    m.icount = rint(0, 1 << 40)
+    status = torch.full((n,), int(StatusCode.RUNNING), device=dev)
+    others = pick([int(StatusCode.OK), int(StatusCode.CRASH),
+                   int(StatusCode.NEEDS_XLA)])
+    m.status = torch.where(rint(0, 10) == 0, others, status).int()
+    m.ctr = rint(0, 1 << 20, (n, 6)).int()
+    return r, m
+
+
+def fp_loop(n_lanes: int, dev, burst_any_tier: bool):
+    """A Runner (fused step on, n_lanes x SLOTS overlay rows) on phase 20's
+    guest, every instruction decoded, each lane with its own trip count
+    (1-12), seed value and buffer offsets (drawn on the CPU, so the same
+    on any device)."""
+    import random
+    import struct
+
+    import torch
+
+    from wtf_tpu_torch.interp.runner import Runner
+    from wtf_tpu_torch.snapshot.loader import Snapshot
+    from wtf_tpu_torch.snapshot.synthetic import SyntheticSnapshotBuilder
+
+    rng = random.Random(20)
+    b = SyntheticSnapshotBuilder()
+    b.write(FPLOOP_GVA, FPLOOP_CODE)
+    b.write(GRID_DATA_GVA, bytes(rng.getrandbits(8) for _ in range(0x1000)))
+    b.map(GRID_DATA_GVA + 0x1000, 0x1000)                 # the copies
+    b.write(GRID_DATA_GVA + 0x2000, struct.pack("<3d", *FPLOOP_CONSTS))
+    b.map(GRID_STACK_TOP - 0x8000, 0x9000)
+    pages, cpu = b.build(rip=FPLOOP_GVA, rsp=GRID_STACK_TOP - 0x1000)
+    r = Runner(Snapshot.from_pages(pages, cpu), n_lanes=n_lanes,
+               overlay_slots=SLOTS, fused_step="on",
+               burst_any_tier=burst_any_tier, device=dev)
+    decode_all(r, r.view(), FPLOOP_CODE, FPLOOP_GVA)
+    g = torch.Generator().manual_seed(20)
+
+    def rint(lo, hi):
+        return torch.randint(lo, hi, (n_lanes,), generator=g)
+
+    regs = {1: 1 + rint(0, 12), 8: rint(-2**40, 2**40),
+            3: GRID_DATA_GVA + 8 * rint(0, 32),
+            6: torch.full((n_lanes,), GRID_DATA_GVA + 0x2000),
+            7: GRID_DATA_GVA + 0x1000 + 8 * rint(0, 0x100)}
+    for idx, value in regs.items():
+        r.machine.gpr[:, idx] = value.to(r.machine.device)
+    return r
+
+
+def loop_outcome(runner) -> dict:
+    """sha256 of every plane of a finished phase-20 batch and of the copy
+    page of its first 64 lanes, as each lane's view reads it."""
+    import hashlib
+
+    out = {name: hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
+           for name, t in runner.machine.planes()}
+    view = runner.view()
+    pfn = view.translate(0, GRID_DATA_GVA + 0x1000) >> 12
+    out["copy pages"] = hashlib.sha256(b"".join(
+        view.page(lane, pfn) for lane in range(64))).hexdigest()
+    return out
+
+
+def fp_loop_cpu() -> dict:
+    """The CPU side of phase 20: the same batch, the same burst tier."""
+    r = fp_loop(LANES, "cpu", True)
+    t0 = time.perf_counter()
+    r.run()
+    return {"outcome": loop_outcome(r), "s": time.perf_counter() - t0,
+            "fallbacks": r.stats["fallbacks"]}
+
+
 def machine_to_cpu(dst, src) -> None:
     """Copy every plane of machine `src` into the same-shaped `dst`."""
     for (_, a), (_, b) in zip(dst.planes(), src.planes()):
@@ -568,23 +851,34 @@ def phase_probe(dev, k1: dict, k2: dict) -> None:
     got = int(pstep.probe_kernel(x).item())
     check(got == 42, f"probe kernel returned {got} for 41")
     k2["max_abs_err"] = abs(got - 42)
-    k2["ms"] = cuda_ms(lambda: pstep.probe_kernel(x), 20)
-    k2["plain_ms"] = cuda_ms(lambda: x + 1, 20)
-    k2["bound_ms"] = 8 / HBM_BYTES_PER_S * 1e3
-    # the launch floor: an empty kernel from the same source, so no
-    # launch (K2's above all) reads as faster than the card can start one
+    # K2 and the launch floor (an empty kernel from the same source, so no
+    # launch, K2's above all, reads as faster than the card can start one)
+    # are timed alike: the raw ctypes call of each.  The wrapper's time
+    # (a library lookup, an output allocation and the call) is kept apart.
     lib = build.library("probe")
     stream = torch.cuda.current_stream(dev).cuda_stream
+    out = torch.empty_like(x)
+
+    def raw():
+        err = lib.wtf_probe(x.data_ptr(), out.data_ptr(), stream)
+        check(err == 0, f"probe kernel launch failed: cuda error {err}")
 
     def empty():
         err = lib.wtf_empty(stream)
         check(err == 0, f"empty kernel launch failed: cuda error {err}")
 
-    empty()
+    k2["ms"] = cuda_ms(raw, 20)
+    check(int(out.item()) == 42, f"raw probe launch gave {int(out.item())}")
+    k2["wrapper_ms"] = cuda_ms(lambda: pstep.probe_kernel(x), 20)
+    # the plain version is itself one PyTorch call of the same function
+    k2["plain_ms"] = k2["library_ms"] = cuda_ms(lambda: x + 1, 20)
+    k2["bound_ms"] = 8 / HBM_BYTES_PER_S * 1e3
     floor = cuda_ms(empty, 20)
     k1["launch_floor_ms"] = k2["launch_floor_ms"] = floor
-    print(f"phase 2: probe kernel ok ({k2['ms']:.4f} ms per launch); "
-          f"launch floor (empty kernel) {floor:.4f} ms")
+    print(f"phase 2: probe kernel ok ({k2['ms']:.4f} ms per raw launch, "
+          f"{k2['wrapper_ms']:.4f} ms through its wrapper); launch floor "
+          f"(empty kernel) {floor:.4f} ms; x + 1 {k2['plain_ms']:.4f} ms "
+          f"(each timed warm, CUDA events)")
 
 
 def phase_random(dev, k1: dict) -> None:
@@ -749,9 +1043,9 @@ def phase_campaign(k1: dict, k2: dict, record: dict) -> None:
     work.clear()
     mk = m0.clone()
     pstep.fused_step(tab, img, mk, runner.limit, 32)
-    mp = m0.clone()
     k1["plain_ms"] = cuda_ms(lambda: pstep.fused_step_plain(
-        tab, img, mp, runner.limit, 32), 1)
+        tab, img, work["m"], runner.limit, 32), 1, setup=fresh)
+    mp = work.pop("m")
     bad, err = plane_diff(mk, mp)
     check(not bad, f"K1 differs from plain on the main-path state: {bad}")
     k1["max_abs_err"] = max(k1["max_abs_err"] or 0, err)
@@ -921,6 +1215,150 @@ def phase_step_sys(dev, record: dict) -> None:
     record["step_sys"] = {"lanes": LANES, "steps": SYS_STEPS,
                           "retired": retired, "statuses": counts,
                           "card_ms_per_step": ms / SYS_STEPS}
+
+
+FP_GROUPS = frozenset({"sse", "ssefp", "x87"})
+
+
+def phase_step_fp(dev, record: dict) -> None:
+    import numpy as np
+    import torch
+
+    from wtf_tpu_torch.core.results import StatusCode
+    from wtf_tpu_torch.interp import step as S
+    from wtf_tpu_torch.interp.machine import CTR_INSTR
+
+    t0 = time.perf_counter()
+    rg, mg = fp_state(LANES, 19, dev)
+    rc, mc = fp_state(LANES, 19, "cpu")      # same guest, same decode order
+    machine_to_cpu(mc, mg)
+    tab_g, tab_c = rg.cache.device(dev), rc.cache.device("cpu")
+    start = mg.clone()
+    groups_seen, ms = [], 0.0
+    for _ in range(FP_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        pre, _, groups = S.scan(tab_g, rg.image, mg)
+        S.step(tab_g, rg.image, mg, 1 << 41, pre, groups)
+        torch.cuda.synchronize()
+        ms += (time.perf_counter() - t1) * 1e3
+        S.step(tab_c, rc.image, mc, 1 << 41)
+        groups_seen.append(sorted(groups))
+    bad = [name for (name, a), (_, b) in zip(mc.planes(), mg.planes())
+           if not torch.equal(a, b.cpu())]
+    check(not bad, f"the precise step's SSE and x87 classes differ "
+                   f"between card and cpu in {bad}")
+    check(FP_GROUPS <= set(groups_seen[0]),
+          f"phase 19's first step computed only {groups_seen[0]}")
+    st = mg.status.cpu().numpy()
+    counts = {int(k): int(v) for k, v in zip(*np.unique(
+        st, return_counts=True))}
+    check(counts.get(int(StatusCode.UNSUPPORTED), 0) > 0
+          and counts.get(int(StatusCode.PAGE_FAULT), 0) > 0,
+          f"phase 19 reached no oracle divert or no page fault: {counts}")
+    retired = int((mg.ctr[:, CTR_INSTR] - start.ctr[:, CTR_INSTR]).sum())
+    # the FP groups' cost on the card: one step from the start state with
+    # the groups scan finds, and with the FP groups left out (whose lanes
+    # then compute nothing right: timed only), in turns
+    per = {"with": [], "without": []}
+    for key in ("with", "without", "without", "with"):
+        m = start.clone()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        pre, _, groups = S.scan(tab_g, rg.image, m)
+        if key == "without":
+            groups = groups - FP_GROUPS
+        S.step(tab_g, rg.image, m, 1 << 41, pre, groups)
+        torch.cuda.synchronize()
+        per[key].append((time.perf_counter() - t1) * 1e3)
+    with_ms, without_ms = min(per["with"]), min(per["without"])
+    print(f"phase 19: precise step on {LANES} random lanes of the SSE, "
+          f"SSE-FP and x87 classes, {FP_STEPS} steps, card == cpu on every "
+          f"plane (status included): retired {retired}, statuses {counts}, "
+          f"groups per step {groups_seen[0]}; card "
+          f"{ms / FP_STEPS:.1f} ms per step (host clock); one step from the "
+          f"start {with_ms:.1f} ms with the FP groups, {without_ms:.1f} ms "
+          f"without ({time.perf_counter() - t0:.1f} s)")
+    record["step_fp"] = {"lanes": LANES, "steps": FP_STEPS,
+                         "retired": retired, "statuses": counts,
+                         "groups": groups_seen,
+                         "card_ms_per_step": ms / FP_STEPS,
+                         "step_ms_with_fp_groups": per["with"],
+                         "step_ms_without_fp_groups": per["without"]}
+
+
+def phase_fp_loop(k1: dict, k2: dict, record: dict) -> dict:
+    """Phase 20's card side -> its outcome digests (held against the CPU
+    run at the end)."""
+    import numpy as np
+    import torch
+
+    from wtf_tpu_torch.core.results import StatusCode
+    from wtf_tpu_torch.interp import pstep
+    from wtf_tpu_torch.interp.machine import (
+        CTR_FUSED, CTR_INSTR, CTR_PARK_SUBSET,
+    )
+    from wtf_tpu_torch.telemetry.spans import CALLS
+
+    for name in pstep.LAUNCHES:
+        pstep.LAUNCHES[name] = 0
+    r = fp_loop(LANES, "cuda", True)        # the Runner launches K2 once
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    status = r.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(pstep.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    ctr = r.machine.ctr.cpu().numpy().view(np.uint32).astype(np.int64)
+    instr, fused = int(ctr[:, CTR_INSTR].sum()), int(ctr[:, CTR_FUSED].sum())
+    parks = int(ctr[:, CTR_PARK_SUBSET].sum())
+    by_class = dict(r.stats["fallbacks_by_opclass"])
+    fp_classes = {"ssemov", "ssealu", "ssefp", "vzeroall", "x87"}
+    names = {int(c): StatusCode(int(c)).name for c in np.unique(status)}
+    counts = {names[int(k)]: int(v) for k, v in zip(*np.unique(
+        status, return_counts=True))}
+    check(launches["fused_step"] > 0, f"K1 never launched: {launches}")
+    check(parks > 0, "K1 parked no lane at the FP classes")
+    check(not fp_classes & set(by_class),
+          f"SSE or x87 lanes fell back to the oracle: {by_class}")
+    check(set(counts) <= TERMINAL, f"non-terminal lanes: {counts}")
+    spans, calls = r.registry.spans, r.registry.counter(CALLS).children
+    legs = int(calls["device-step"].value)
+    legs_s = spans.seconds("device-step")
+    k1_s = spans.seconds("fused-step")
+    print(f"phase 20: {LANES}-lane x {SLOTS}-row FP loop (fused step on, "
+          f"burst_any_tier on, the card's default): {instr} instructions in "
+          f"{wall:.2f} s ({fused} in K1, {parks} parks at the FP classes); "
+          f"K1 launches {launches['fused_step']}, resume legs {legs}; K1 "
+          f"share of the wall {k1_s / wall:.3f}, resume legs "
+          f"{legs_s / wall:.3f}; oracle fallbacks {r.stats['fallbacks']} "
+          f"{by_class}; statuses {counts}; peak device bytes {peak}")
+    k1["launches_by_path"]["fp loop"] = launches["fused_step"]
+    k2["launches_by_path"]["fp loop"] = launches["probe"]
+    record["fp_loop"] = {"lanes": LANES, "slots": SLOTS, "wall_s": wall,
+                         "instructions": instr, "fused": fused,
+                         "park_subset": parks, "k1_launches":
+                         launches["fused_step"], "resume_legs": legs,
+                         "k1_share": k1_s / wall,
+                         "resume_share": legs_s / wall,
+                         "fallbacks": r.stats["fallbacks"],
+                         "by_class": by_class, "statuses": counts,
+                         "peak_bytes": peak}
+    outcome_ = loop_outcome(r)
+    del r
+    torch.cuda.empty_cache()
+    return outcome_
+
+
+def phase_fp_loop_card_vs_cpu(cpu, card: dict) -> None:
+    want = cpu["fp loop"].result()
+    bad = sorted(k for k in card if card[k] != want["outcome"][k])
+    check(not bad, f"phase 20's FP loop differs between card and cpu in "
+                   f"{bad}")
+    print(f"phase 20: card == cpu on every plane of the {LANES} lanes and "
+          f"on the copy pages (cpu {want['s']:.1f} s in a worker process, "
+          f"{want['fallbacks']} fallbacks)")
 
 
 def phase_kernel_campaign(k1: dict, k2: dict, record: dict) -> tuple:
@@ -1922,8 +2360,8 @@ def phase_new_targets_card_vs_cpu(cpu) -> None:
 
 
 def start_cpu_references(pool) -> dict:
-    """The CPU sides of phases 6, 9, 11, 14 and 17, started together in
-    worker processes once the card's timed phases are done."""
+    """The CPU sides of phases 6, 9, 11, 14, 17 and 20, started together
+    in worker processes once the card's timed phases are done."""
     import os
 
     jobs = {"demo_tlv": (small_campaign, "demo_tlv", "cpu"),
@@ -1939,7 +2377,8 @@ def start_cpu_references(pool) -> dict:
             "run demo_usermode": (replay_runs, "demo_usermode", USER_RUNS,
                                   "cpu"),
             "demo_spin": (small_campaign, "demo_spin", "cpu",
-                          SPIN_SMALL_LIMIT, (), True)}
+                          SPIN_SMALL_LIMIT, (), True),
+            "fp loop": (fp_loop_cpu,)}
     for name in NEW_TARGETS:
         jobs[name] = (small_campaign, name, "cpu", 100000, (), True)
     threads = max(1, (os.cpu_count() or 1) // len(jobs))
@@ -1980,11 +2419,13 @@ def main(argv=None) -> int:
     phase_dump(k1, k2, record, kernel_out)
     phase_targets(k1, k2, record)
     phase_spin(k1, k2, record)
-    # the CPU references of phases 6, 9, 11, 14 and 17 run in worker
+    phase_step_fp(dev, record)
+    fp_card = phase_fp_loop(k1, k2, record)
+    # the CPU references of phases 6, 9, 11, 14, 17 and 20 run in worker
     # processes, after every timed phase, while this process runs their
     # card sides
     with ProcessPoolExecutor(
-            max_workers=11, mp_context=multiprocessing.get_context(
+            max_workers=12, mp_context=multiprocessing.get_context(
                 "spawn")) as pool:
         cpu = start_cpu_references(pool)
         phase_card_vs_cpu(cpu)
@@ -1992,6 +2433,7 @@ def main(argv=None) -> int:
         card_window = phase_window_card_vs_cpu(cpu)
         phase_dd_card_vs_cpu(cpu, card_window)
         phase_new_targets_card_vs_cpu(cpu)
+        phase_fp_loop_card_vs_cpu(cpu, fp_card)
 
     kernels = {"kernels": [k1, k2]}
     if args.out is not None:

@@ -6,12 +6,9 @@ lockstep: one JAX `make_run_chunk(1)` step and one port `step` from the
 same converted state, then every machine plane — registers, rip, rflags,
 status, icount, bp_skip, fault address and kind, the counter block, the
 coverage and edge bitmaps and the raw overlay planes — must be equal.
-A lane whose next instruction is outside this slice (`NOT_YET_PORTED`)
-must come out UNSUPPORTED from the port's step (the runner then runs it on
-the oracle); it is retired in both machines before the lockstep goes on.
 The integer cores are also held against the JAX limb cores on random
-operand grids, and a runner-level case shows NOT_YET_PORTED opclasses
-served by the oracle with the JAX ladder's final state.
+operand grids, and a runner-level case runs hot code interleaved with the
+SSE and x87 opclasses on the device step, to the JAX ladder's final state.
 """
 
 import random
@@ -29,13 +26,11 @@ from wtf_tpu.interp import limbs as L
 from wtf_tpu.interp import step as JS
 from wtf_tpu_torch import convert
 from wtf_tpu_torch.core.results import StatusCode
-from wtf_tpu_torch.cpu import uops as U
 from wtf_tpu_torch.interp import step as TS
 
 N_LANES = 4
 CAP = 1024
 SLOTS = 8
-_NYP = frozenset(getattr(U, f"OPC_{n}") for n in TS.NOT_YET_PORTED)
 
 
 def _lane_regs(seed: int):
@@ -53,21 +48,11 @@ def _lane_regs(seed: int):
     return out
 
 
-def _not_yet_ported(tab, img, m):
-    """Lanes about to run an opclass this slice leaves to the oracle."""
-    idx, _, d = TS.probe(tab, img, m)
-    nyp = torch.zeros_like(idx, dtype=torch.bool)
-    for opc in _NYP:
-        nyp |= d.opc == opc
-    at_bp = (d.bp == 1) & (m.bp_skip == 0)
-    return (m.status == int(StatusCode.RUNNING)) & (idx >= 0) & nyp & ~at_bp
-
-
 def lockstep(asm, data=None, regs=None, lane_regs=None, limit=0, bps=(),
              bp_skip_lanes=(), readonly=None, large=None, keep=(),
              max_steps=3000):
     """Step both engines from the same state until no lane runs; returns
-    (jax machine, port machine, set of statuses seen, NYP lane count)."""
+    (jax machine, port machine, set of statuses seen)."""
     pages, cpu = tp.build_guest(asm, data, regs, readonly, large)
     r = tp.warm_runner(pages, cpu, N_LANES, CAP, SLOTS)
     for gva in bps:
@@ -82,21 +67,8 @@ def lockstep(asm, data=None, regs=None, lane_regs=None, limit=0, bps=(),
         m.bp_skip[lane] = 1
     mj = tp.to_jax(m)
     run1 = JS.make_run_chunk(1, donate=False)
-    seen, nyp_lanes = set(), 0
+    seen = set()
     for i in range(max_steps):
-        nyp = _not_yet_ported(tab, img, m)
-        if nyp.any():
-            probe = m.clone()
-            TS.step(tab, img, probe, limit)
-            assert (probe.status[nyp] == int(StatusCode.UNSUPPORTED)).all()
-            # state untouched apart from the status and the coverage bit
-            assert torch.equal(probe.gpr[nyp], m.gpr[nyp])
-            assert torch.equal(probe.rip[nyp], m.rip[nyp])
-            assert torch.equal(probe.icount[nyp], m.icount[nyp])
-            nyp_lanes += int(nyp.sum())
-            m.status = torch.where(nyp, int(StatusCode.OK),
-                                   m.status).to(torch.int32)
-            mj = mj._replace(status=jnp.asarray(m.status.numpy()))
         if not bool((m.status == int(StatusCode.RUNNING)).any()):
             break
         mj = run1(tab_j, img_j, mj, jnp.uint64(limit))
@@ -109,17 +81,17 @@ def lockstep(asm, data=None, regs=None, lane_regs=None, limit=0, bps=(),
                 m.status[lane] = int(StatusCode.RUNNING)
                 m.bp_skip[lane] = 1
                 mj = tp.to_jax(m)
-    return mj, m, seen, nyp_lanes
+    return mj, m, seen
 
 
 @pytest.mark.parametrize("seed", range(4))
 def test_step_hot_grids_match_step_lane(seed):
     rng = random.Random(0xF05E + seed)
     asm = _gen_hot_program(rng)
-    _, m, seen, nyp = lockstep(asm, regs=_random_regs(rng),
-                               lane_regs=_lane_regs(seed))
+    _, m, seen = lockstep(asm, regs=_random_regs(rng),
+                          lane_regs=_lane_regs(seed))
     # every lane ends at the int3, which the step itself retires as CRASH
-    assert nyp == 0 and (m.status == int(StatusCode.CRASH)).all()
+    assert (m.status == int(StatusCode.CRASH)).all()
     assert (m.icount > 10).all()
 
 
@@ -158,9 +130,9 @@ def _mem_program(seed: int) -> str:
 def test_step_mem_grids_match_step_lane(seed):
     """Memory operands through the walk and the overlay, including stores
     straddling two pages (the +0xFFC displacement)."""
-    _, m, _, _ = lockstep(_mem_program(seed),
-                          data={DATA_BASE: bytes(0x2000)},
-                          lane_regs=_lane_regs(seed))
+    _, m, _ = lockstep(_mem_program(seed),
+                       data={DATA_BASE: bytes(0x2000)},
+                       lane_regs=_lane_regs(seed))
     assert (m.overlay.count > 0).all()
 
 
@@ -175,8 +147,8 @@ def test_step_page_faults(case):
         "noncanonical": "mov rbx, 0x8000000000000000\nmov rax, [rbx]\nint3",
         "push": "mov rsp, 0x10000\npush rax\nint3",
     }[case]
-    _, m, seen, _ = lockstep(asm, data={DATA_BASE: b"\x55" * 0x1000},
-                             readonly={DATA_BASE + 0x1000: 0x1000})
+    _, m, seen = lockstep(asm, data={DATA_BASE: b"\x55" * 0x1000},
+                          readonly={DATA_BASE + 0x1000: 0x1000})
     assert seen >= {StatusCode.PAGE_FAULT}
     assert (m.ctr[:, 1] == 1).all()      # CTR_MEM_FAULT
 
@@ -194,8 +166,8 @@ def test_step_breakpoint_and_bp_skip():
     """
     code = tp.assemble(asm)
     bp = tp.CODE_BASE + code.index(bytes.fromhex("48ffc2"))
-    _, m, seen, _ = lockstep(asm, bps=(bp,), bp_skip_lanes=(1,),
-                             keep=range(N_LANES))
+    _, m, seen = lockstep(asm, bps=(bp,), bp_skip_lanes=(1,),
+                          keep=range(N_LANES))
     assert StatusCode.BREAKPOINT in seen
 
 
@@ -208,17 +180,17 @@ def test_step_smc_timeout_overlay_full():
         inc rax
         int3
     """
-    _, _, seen, _ = lockstep(smc)
+    _, _, seen = lockstep(smc)
     assert StatusCode.SMC in seen
     # the instruction budget stops a hot loop mid-way
     loop = "mov rcx, 1000\n1:\nadd rax, rcx\ndec rcx\njnz 1b\nint3"
-    _, m, seen, _ = lockstep(loop, limit=37)
+    _, m, seen = lockstep(loop, limit=37)
     assert StatusCode.TIMEDOUT in seen and (m.icount == 37).all()
     # more dirty pages than overlay rows
     stores = "\n".join(f"mov [rbx + {0x1000 * i}], rax"
                        for i in range(SLOTS + 2))
-    _, m, seen, _ = lockstep(f"mov rbx, {DATA_BASE}\n{stores}\nint3",
-                             data={DATA_BASE: bytes(0x1000 * (SLOTS + 2))})
+    _, m, seen = lockstep(f"mov rbx, {DATA_BASE}\n{stores}\nint3",
+                          data={DATA_BASE: bytes(0x1000 * (SLOTS + 2))})
     assert StatusCode.OVERLAY_FULL in seen
     assert bool(m.overlay.overflow.all())
 
@@ -235,7 +207,7 @@ def test_step_large_pages():
     """
     blobs = {gpa + 0x1F0000: (0x1111_2222_3333_4444).to_bytes(8, "little"),
              gpa + 8: (0x10).to_bytes(8, "little")}
-    _, m, _, _ = lockstep(asm, large=(big, gpa, 21, blobs))
+    _, m, _ = lockstep(asm, large=(big, gpa, 21, blobs))
     assert int(m.gpr[0, 0]) == 0x1111_2222_3333_4454
 
 
@@ -319,11 +291,11 @@ def test_integer_core_matches_limb_core(core):
         assert np.array_equal(want, have), (core, np.argwhere(want != have))
 
 
-def test_not_yet_ported_opclasses_run_on_the_oracle():
-    """Runner level: a program of hot code interleaved with the SSE and
-    x87 opclasses the port leaves to the oracle (`NOT_YET_PORTED`) ends in
-    the JAX ladder's exact state, and the port counts those fallbacks
-    apart (the int3 at the end is the step's own)."""
+def test_sse_and_x87_opclasses_run_on_the_device_step():
+    """Runner level: a program of hot code interleaved with SSE, SSE-FP
+    and x87 instructions ends in the JAX ladder's exact state with no
+    oracle fallback: the port's step runs those classes (the int3 at the
+    end is the step's own)."""
     from wtf_tpu.interp.runner import Runner as JRunner
     from wtf_tpu.mem.physmem import PhysMem as JPhysMem
     from wtf_tpu.snapshot.loader import Snapshot as JSnapshot
@@ -357,6 +329,7 @@ def test_not_yet_ported_opclasses_run_on_the_oracle():
     jr = JRunner(JSnapshot(physmem=JPhysMem.from_pages(jpages), cpu=jcpu),
                  n_lanes=2, chunk_steps=64)
     js = jr.run()
+    js_fallbacks = jr.stats["fallbacks"]
     for fused in ("off", "on"):
         tr = Runner(Snapshot.from_pages(pages, cpu), n_lanes=2,
                     chunk_steps=64, fused_step=fused, device="cpu")
@@ -373,8 +346,5 @@ def test_not_yet_ported_opclasses_run_on_the_oracle():
         jv, tv = jr.view(), tr.view()
         pfn = tv.translate(0, DATA_BASE) >> 12
         assert jv.page(0, pfn) == tv.page(0, pfn)
-        by_class = tr.stats["fallbacks_by_opclass"]
-        assert {"not-yet-ported:ssemov", "not-yet-ported:ssealu",
-                "not-yet-ported:ssefp", "not-yet-ported:x87"} \
-            <= set(by_class)
-        assert all(k.startswith("not-yet-ported:") for k in by_class)
+        assert tr.stats["fallbacks"] == 0, tr.stats["fallbacks_by_opclass"]
+        assert js_fallbacks == 0

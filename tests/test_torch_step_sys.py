@@ -22,7 +22,6 @@ offsets and BITSCAN on zero.
 
 import random
 
-import jax.numpy as jnp
 import pytest
 import torch
 
@@ -31,8 +30,6 @@ from tests.asmhelper import assemble
 from tests.emurunner import CODE_BASE, DATA_BASE
 from tests.test_emu import HW_CASES, IRETQ_ASM, _ALT_REGS, _INIT_REGS
 from tests.test_step import DIFF_CASES
-from wtf_tpu.interp import step as JS
-from wtf_tpu_torch import convert
 from wtf_tpu_torch.core.cpustate import GPR_NAMES
 from wtf_tpu_torch.core.results import StatusCode
 from wtf_tpu_torch.cpu import uops as U
@@ -42,10 +39,14 @@ from wtf_tpu_torch.interp import step as TS
 N_LANES = 4
 CAP = 1024
 SLOTS = 8
-_RUNNING = int(StatusCode.RUNNING)
-_A5B = frozenset(getattr(U, f"OPC_{n}") for names in TS.GROUPS.values()
-                 for n in names) - {U.OPC_HLT}
-_NYP = frozenset(getattr(U, f"OPC_{n}") for n in TS.NOT_YET_PORTED)
+# the groups of ROADMAP A5(b); the SSE and x87 groups have their own
+# files (test_torch_step_fp.py, test_torch_step_x87.py)
+A5B_GROUPS = ("div", "bits", "string", "stack", "sys")
+FP_GROUPS = ("sse", "ssefp", "x87")
+_A5B = frozenset(getattr(U, f"OPC_{n}") for g in A5B_GROUPS
+                 for n in TS.GROUPS[g]) - {U.OPC_HLT}
+_FP = frozenset(getattr(U, f"OPC_{n}") for g in FP_GROUPS
+                for n in TS.GROUPS[g])
 
 
 def _opclasses(asm: str) -> set:
@@ -62,7 +63,7 @@ def _opclasses(asm: str) -> set:
 
 def _reaches_a5b(asm: str) -> bool:
     opcs = _opclasses(asm)
-    return bool(opcs & _A5B) and not opcs & _NYP
+    return bool(opcs & _A5B) and not opcs & _FP
 
 
 def _lane_regs(seed: int, fixed=()):
@@ -83,38 +84,8 @@ def lockstep(asm, data=None, regs=None, lane_regs=None, limit=0,
              max_steps=3000):
     """Step both engines from the same state until no lane runs; returns
     (port machine, statuses seen, lanes served by the oracle)."""
-    pages, cpu = tp.build_guest(asm, data, regs)
-    r = tp.warm_runner(pages, cpu, N_LANES, CAP, SLOTS)
-    tab = r.cache.device("cpu")
-    img_leaves = tp.padded_image(pages)
-    img = convert.image_from_jax(img_leaves)
-    img_j = tp.jax_image(img_leaves)
-    tab_j = tp.jax_table(convert.table_to_jax(tab))
-    m = tp.initial_machine(cpu, N_LANES, CAP, SLOTS, lane_regs)
-    mj = tp.to_jax(m)
-    run1 = JS.make_run_chunk(1, donate=False)
-    seen, served = set(), 0
-    for i in range(max_steps):
-        if not bool((m.status == _RUNNING).any()):
-            break
-        mj = run1(tab_j, img_j, mj, jnp.uint64(limit))
-        TS.run_steps(tab, img, m, limit, 1)
-        tp.assert_machines_equal(mj, m, where=f"step {i}")
-        seen |= {StatusCode(int(s)) for s in m.status}
-        oracle = (m.status == int(StatusCode.UNSUPPORTED)).nonzero()[:, 0]
-        if len(oracle):
-            # the runner's service: single-step those lanes on the oracle
-            r.machine = m
-            view = r.view()
-            for lane in oracle.tolist():
-                r._fallback_step(view, lane)
-            r.push(view)
-            m = r.machine
-            mj = tp.to_jax(m)
-            served += len(oracle)
-    else:
-        raise AssertionError(f"lanes still running after {max_steps} steps")
-    return m, seen, served
+    return tp.lockstep(asm, data, regs, lane_regs, limit, N_LANES,
+                       max_steps, CAP, SLOTS)
 
 
 def _gpr(m, lane, idx):
@@ -149,15 +120,16 @@ def test_mem_cases_match_step_lane(name, snippet, data):
 
 
 def test_case_lists_cover_every_group():
-    """The two corpora above reach every group of the step."""
+    """The two corpora above reach every A5(b) group of the step."""
     opcs = set()
     for c in _HW:
         opcs |= _opclasses(c[1])
     for c in _MEM:
         opcs |= _opclasses(c[1])
-    for group, names in TS.GROUPS.items():
+    for group in A5B_GROUPS:
         if group == "sys":
             continue      # the named cases below carry the system classes
+        names = TS.GROUPS[group]
         assert opcs & {getattr(U, f"OPC_{n}") for n in names}, group
     assert len(_HW) >= 40 and len(_MEM) >= 12
 

@@ -142,6 +142,56 @@ def initial_machine(cpu, n_lanes, uop_capacity, overlay_slots,
     return m
 
 
+def lockstep(asm, data=None, regs=None, lane_regs=None, limit=0,
+             n_lanes=4, max_steps=3000, uop_capacity=1024, overlay_slots=8):
+    """Step the JAX step_lane (`make_run_chunk(1)`) and the port's
+    `run_steps` (which computes only the opclass groups its scan finds)
+    from the same state until no lane runs, every plane equal after each
+    step.  Lanes both engines leave to the host oracle (UNSUPPORTED) are
+    single-stepped by the port runner's oracle and the state is carried
+    over to the JAX machine, so the lockstep goes on past them.  Returns
+    (port machine, statuses seen, lanes served by the oracle)."""
+    from wtf_tpu.interp import step as JS
+    from wtf_tpu_torch.core.results import StatusCode
+    from wtf_tpu_torch.interp import step as TS
+
+    running, unsupported = int(StatusCode.RUNNING), \
+        int(StatusCode.UNSUPPORTED)
+    pages, cpu = build_guest(asm, data, regs)
+    r = warm_runner(pages, cpu, n_lanes, uop_capacity, overlay_slots)
+    tab = r.cache.device("cpu")
+    img_leaves = padded_image(pages)
+    img = convert.image_from_jax(img_leaves)
+    img_j = jax_image(img_leaves)
+    tab_j = jax_table(convert.table_to_jax(tab))
+    m = initial_machine(cpu, n_lanes, uop_capacity, overlay_slots,
+                        lane_regs)
+    mj = to_jax(m)
+    run1 = JS.make_run_chunk(1, donate=False)
+    seen, served = set(), 0
+    for i in range(max_steps):
+        if not bool((m.status == running).any()):
+            break
+        mj = run1(tab_j, img_j, mj, jnp.uint64(limit))
+        TS.run_steps(tab, img, m, limit, 1)
+        assert_machines_equal(mj, m, where=f"step {i}")
+        seen |= {StatusCode(int(s)) for s in m.status}
+        oracle = (m.status == unsupported).nonzero()[:, 0]
+        if len(oracle):
+            # the runner's service: single-step those lanes on the oracle
+            r.machine = m
+            view = r.view()
+            for lane in oracle.tolist():
+                r._fallback_step(view, lane)
+            r.push(view)
+            m = r.machine
+            mj = to_jax(m)
+            served += len(oracle)
+    else:
+        raise AssertionError(f"lanes still running after {max_steps} steps")
+    return m, seen, served
+
+
 # ---------------------------------------------------------------------------
 # conversions to JAX pytrees
 # ---------------------------------------------------------------------------

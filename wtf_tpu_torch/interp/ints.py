@@ -55,6 +55,14 @@ def _i64(x) -> torch.Tensor:
     return x if x.dtype == _I64 else x.to(_I64)
 
 
+def select(conds, vals, default):
+    """First-true select over masks (jnp.select / limbs.select64)."""
+    out = default
+    for c, v in zip(reversed(conds), reversed(vals)):
+        out = torch.where(c, v, out)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # shifts and rotates
 # ---------------------------------------------------------------------------

@@ -52,7 +52,7 @@ from wtf_tpu_torch.interp.machine import (
     CTR_DECODE_MISS, CTR_FUSED, CTR_INSTR, CTR_MEM_FAULT, CTR_PARK_MEM,
     CTR_PARK_SUBSET, Machine, machine_init, machine_restore,
 )
-from wtf_tpu_torch.interp.step import NOT_YET_PORTED, run_steps
+from wtf_tpu_torch.interp.step import run_steps
 from wtf_tpu_torch.interp.uoptable import DecodeCache
 from wtf_tpu_torch.mem.physmem import lane_image
 from wtf_tpu_torch.snapshot.loader import Snapshot
@@ -65,8 +65,6 @@ _OPC_NAMES = {
     value: name[len("OPC_"):].lower()
     for name, value in vars(U).items() if name.startswith("OPC_")
 }
-_NOT_YET_PORTED_OPCS = frozenset(getattr(U, f"OPC_{n}")
-                                 for n in NOT_YET_PORTED)
 
 PTE_P = 1
 PTE_W = 1 << 1
@@ -582,9 +580,7 @@ class Runner:
         # the next push
         self._pending_cov: List[Tuple[int, int]] = []
         self._pending_edge: List[Tuple[int, int]] = []
-        # fallbacks_by_opclass: oracle single-steps by opcode class; the
-        # classes this slice has not ported to the device count under
-        # "not-yet-ported:<class>"
+        # fallbacks_by_opclass: oracle single-steps by opcode class
         self.stats = StatsDict(
             self.registry, "runner",
             fields=("chunks", "decodes", "decodes_prefetched",
@@ -872,12 +868,8 @@ class Runner:
         """Single-step one lane on the EmuCpu oracle."""
         self.stats["fallbacks"] += 1
         uop = self.cache.uop_at(view.get_rip(lane))
-        if uop is None:
-            opclass = "undecoded"
-        else:
-            opclass = _OPC_NAMES.get(uop.opc, f"opc{uop.opc}")
-            if uop.opc in _NOT_YET_PORTED_OPCS:
-                opclass = f"not-yet-ported:{opclass}"
+        opclass = (_OPC_NAMES.get(uop.opc, f"opc{uop.opc}")
+                   if uop is not None else "undecoded")
         by_class = self.stats["fallbacks_by_opclass"]
         by_class[opclass] = by_class.get(opclass, 0) + 1
         cpu_state = _lane_cpu_state(view, lane, self.cpu0_of(lane))

@@ -11,26 +11,30 @@ lane axis directly:
      walks (first/last byte of the load, the read-modify operand and the
      store; rsi/rdi for strings, rbp for LEAVE, rsp for the stack forms),
      the 3-word operand windows, PAGE_FAULT with the faulting address and
-     access kind
+     access kind (SSE-FP loads at the oracle's byte counts, x87 stores at
+     their operand width)
   5. the sixteen hot opclasses the fused kernel also runs
-     (`HOT_OPCLASSES`) and the integer and system classes: DIV (#DE ->
+     (`HOT_OPCLASSES`); the integer and system classes: DIV (#DE ->
      DIVIDE_ERROR), CONVERT, BT, BITSCAN, BMI, BSWAP, XCHG, CMPXCHG, XADD,
      one string element per step (REP iterates by executing again),
      LEAVE/ENTER, PUSHF/POPF, the flag ops, CPUID, RDTSC, RDRAND, XGETBV,
      SYSCALL/SYSRET, SWAPGS, RD/WR{FS,GS}BASE, MOV CR (a new cr3 ->
      CR3_CHANGE), RDMSR/WRMSR of the MSRs the machine carries, and
-     INT/INT1/HLT (-> CRASH)
+     INT/INT1/HLT (-> CRASH); and the SSE and x87 classes (interp/fp.py):
+     SSEMOV, SSEALU, SSEFP, VZEROALL and the x87 subset
   6. the overlay store (OVERLAY_FULL when a lane is out of rows), register
      writes in the JAX step's order (rsp/rsi/rdi/rcx, aux, primary, the
-     CPUID rows), rflags, rip, control registers, MSRs and selectors
+     CPUID rows), rflags, rip, control registers, MSRs, selectors, the
+     xmm file and the x87 stack, tag, control and status words
   7. icount and the instruction budget (TIMEDOUT), the coverage bit of the
      uop entry, the edge bit at mix64(rip) ^ target, the counter block
 
-What the JAX step sends to the host oracle stays UNSUPPORTED here too
-(`ORACLE_OPCLASSES`, unknown MSRs, 128-bit dividends, bad control
-registers, non-canonical wr{fs,gs}base, 67h strings), and so do the SSE and
-x87 classes this port does not run yet (`NOT_YET_PORTED`): the runner
-single-steps those lanes on the oracle (Runner._fallback_step).
+What the JAX step sends to the host oracle stays UNSUPPORTED here too, and
+the runner single-steps those lanes on the oracle (Runner._fallback_step):
+`ORACLE_OPCLASSES`, unknown MSRs, 128-bit dividends, bad control registers,
+non-canonical wr{fs,gs}base, 67h strings, pinsrw from memory, the
+FXSAVE-class x87 state movers, and SSE-FP and x87 lanes whose operation
+touches the denormal range.
 
 A step computes each group of classes (`GROUPS`) only when the caller says
 a lane may need it (`run_steps` reads which are present among the running
@@ -49,6 +53,7 @@ from wtf_tpu_torch.core.results import StatusCode
 from wtf_tpu_torch.cpu import uops as U
 from wtf_tpu_torch.cpu.cpuid import CPUID_TABLE, MAX_BASIC_LEAF
 from wtf_tpu_torch.cpu.emu import MSR_ATTR
+from wtf_tpu_torch.interp import fp as F
 from wtf_tpu_torch.interp import ints as I
 from wtf_tpu_torch.interp.machine import (
     CTR_DECODE_MISS, CTR_INSTR, CTR_MEM_FAULT, Machine,
@@ -82,17 +87,18 @@ GROUPS = {
     "stack": ("LEAVE", "PUSHF", "POPF", "FLAGOP"),
     "sys": ("SYSCALL", "INT", "HLT", "INT1", "RDTSC", "RDRAND", "CPUID",
             "XGETBV", "RDGSBASE", "MOVCR", "MSR"),
+    "sse": ("SSEMOV", "SSEALU", "VZEROALL"),
+    "ssefp": ("SSEFP",),
+    "x87": ("X87",),
 }
-# Classes whose access is not at the generic effective address (strings,
-# the rbp/rsp forms, BT's bit string).  Every lane writes its store window
-# back, storing or not (mem/overlay.py store_window3), so the "roles"
-# group is computed when ANY lane, running or not, sits at one of these.
-ROLES = ("STRING", "LEAVE", "PUSHF", "POPF", "BT")
+# Classes whose access is not at the generic effective address or size
+# (strings, the rbp/rsp forms, BT's bit string, x87 stores of their
+# operand width).  Every lane writes its store window back, storing or not
+# (mem/overlay.py store_window3), so the "roles" group is computed when
+# ANY lane, running or not, sits at one of these.
+ROLES = ("STRING", "LEAVE", "PUSHF", "POPF", "BT", "X87")
 ALL_GROUPS = frozenset(GROUPS) | {"roles"}
 
-# The JAX step executes these on the device and the port does not yet
-# (ROADMAP A5(c)/(d)): they surface as UNSUPPORTED and run on the oracle.
-NOT_YET_PORTED = frozenset({"SSEMOV", "SSEALU", "SSEFP", "VZEROALL", "X87"})
 # Oracle-serviced in both packages.
 ORACLE_OPCLASSES = frozenset({"INVALID", "IRET", "SSECVT", "PCLMUL",
                               "STACKSTR"})
@@ -102,12 +108,7 @@ _I64 = torch.int64
 _LOW32 = 0xFFFFFFFF
 
 
-def _sel(conds, vals, default):
-    """First-true select over [L] masks (jnp.select / limbs.select64)."""
-    out = default
-    for c, v in zip(reversed(conds), reversed(vals)):
-        out = torch.where(c, v, out)
-    return out
+_sel = I.select
 
 
 def _mod(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -622,7 +623,7 @@ def _opc_table(device):
                 bits[getattr(U, f"OPC_{name}")] |= _GROUP_BITS[group]
         for name in ROLES:
             bits[getattr(U, f"OPC_{name}")] |= _GROUP_BITS["roles"]
-        for name in NOT_YET_PORTED | ORACLE_OPCLASSES:
+        for name in ORACLE_OPCLASSES:
             bits[getattr(U, f"OPC_{name}")] |= _ORACLE_BIT
         pow2 = [1 << i for i in range(_RUN_BIT.bit_length())]
         _TABLES[key] = (torch.tensor(bits, dtype=_I64, device=device),
@@ -677,9 +678,10 @@ def step(tab: UopTable, image: MemImage, m: Machine, limit: int,
     gpr, rip, rf = m.gpr, m.rip, m.rflags
     enabled = m.status == _RUNNING
     idx, idxc, d = probe(tab, image, m) if pre is None else pre
-    g_div, g_bits, g_str, g_stack, g_sys = (
-        name in groups for name in ("div", "bits", "string", "stack", "sys"))
-    g_roles = "roles" in groups or g_str or g_stack
+    g_div, g_bits, g_str, g_stack, g_sys, g_sse, g_fp, g_x87 = (
+        name in groups for name in ("div", "bits", "string", "stack", "sys",
+                                    "sse", "ssefp", "x87"))
+    g_roles = "roles" in groups or g_str or g_stack or g_x87
     miss = enabled & (idx < 0)
     at_bp = enabled & ~miss & (d.bp == 1) & (m.bp_skip == 0)
     pre_live = enabled & ~miss & ~at_bp
@@ -737,9 +739,29 @@ def step(tab: UopTable, image: MemImage, m: Machine, limit: int,
         # 67h string forms use 32-bit rsi/rdi/rcx, which neither engine
         # models
         unsup = unsup | (is_string & (d.a32 != 0))
+        # x87 stores write [mem] at their operand width without reading it
+        # (their fault is the store's, a WRITE)
+        is_x87 = is_(U.OPC_X87)
+        x87_store = is_x87 & (
+            (sub == U.X87_FST_M) | (sub == U.X87_FIST)
+            | (sub == U.X87_FIST_T) | (sub == U.X87_FNSTCW)
+            | (sub == U.X87_FNSTSW_M) | (sub == U.X87_STMXCSR))
     else:
         is_string = s_movs = s_stos = s_lods = s_scas = s_cmps = rep_on = \
-            rep_skip = is_leave = is_enter = is_pushf = is_popf = false
+            rep_skip = is_leave = is_enter = is_pushf = is_popf = is_x87 = \
+            x87_store = false
+    if g_sse:
+        is_ssemov, is_ssealu = is_(U.OPC_SSEMOV), is_(U.OPC_SSEALU)
+        is_sse = is_ssemov | is_ssealu
+        # pinsrw m16: a 2-byte load outside the 16-byte operand window
+        unsup = unsup | (is_ssealu & (sub == U.SSE_PINSRW)
+                         & (d.sk == U.K_MEM))
+    if g_x87:
+        # the FXSAVE-class state movers (512+ byte images)
+        x87_oracle = is_x87 & (
+            (sub == U.X87_FXSAVE) | (sub == U.X87_FXRSTOR)
+            | (sub == U.X87_XSAVE) | (sub == U.X87_XRSTOR))
+        unsup = unsup | x87_oracle
     unsupported = pre_live & unsup
     ok_path = pre_live & ~unsupported
 
@@ -762,16 +784,22 @@ def step(tab: UopTable, image: MemImage, m: Machine, limit: int,
     # -- memory roles ------------------------------------------------------
     stack_pop = is_pop | is_popf | is_ret
     l1_need = ok_path & ~rep_skip & (
-        (d.sk == U.K_MEM) | stack_pop | is_leave | s_movs | s_lods | s_cmps
-        | s_scas)
+        ((d.sk == U.K_MEM) & ~x87_store) | stack_pop | is_leave | s_movs
+        | s_lods | s_cmps | s_scas)
     l1_addr = _sel([s_movs | s_lods | s_cmps, s_scas, stack_pop, is_leave],
                    [rsi, rdi, rsp, rbp], ea) if g_roles \
         else torch.where(is_pop | is_ret, rsp, ea)
     l1_size = torch.where(is_popf | is_ret | is_leave, 8, torch.where(
         is_pop | is_string, opsize, d.srcsize))
     # store-only destinations write [mem] without reading it: their fault
-    # is the store's (a WRITE)
+    # is the store's (a WRITE); SSE reads only its source
     store_only = is_(U.OPC_MOV) | is_(U.OPC_SETCC) | is_pop
+    if g_sse:
+        l1_size = torch.where(is_sse, opsize, l1_size)
+        store_only = store_only | is_sse
+    if g_fp:
+        is_ssefp = is_(U.OPC_SSEFP)
+        l1_size = torch.where(is_ssefp, F.fp_ldsize(d), l1_size)
     l2_need = ok_path & ~rep_skip & (((d.dk == U.K_MEM) & ~store_only)
                                      | s_cmps)
     l2_addr = torch.where(s_cmps, rdi, ea) if g_roles else ea
@@ -779,7 +807,8 @@ def step(tab: UopTable, image: MemImage, m: Machine, limit: int,
     st_addr = _sel([is_push | is_pushf | is_call, is_enter, s_movs | s_stos],
                    [rsp - push_size, rsp - 8, rdi], ea) if g_roles \
         else torch.where(is_push | is_call, rsp - push_size, ea)
-    st_size = push_size
+    st_size = torch.where(x87_store, d.srcsize, push_size) if g_roles \
+        else push_size
 
     gva6 = torch.stack([l1_addr, l1_addr + l1_size - 1, l2_addr,
                         l2_addr + opsize - 1, st_addr, st_addr + st_size - 1],
@@ -956,19 +985,66 @@ def step(tab: UopTable, image: MemImage, m: Machine, limit: int,
                 (gpr[:, 11] & U.RF_WRITABLE) | 0x2))]
         rip_rows.append((is_sysc, torch.where(syscall_entry, m.lstar, rcx)))
 
+    # the xmm write (cond, lo, hi) of each class; the FP divert
+    wx_rows, fp_denorm = [], false
+    if g_sse or g_fp:
+        lanes = torch.arange(m.n_lanes, device=rip.device)
+        xr = d.dr.clamp(0, 15)
+        x_dst = m.xmm[lanes, xr]
+        x_sreg = m.xmm[lanes, d.sr.clamp(0, 15)]
+        k_xmm = d.sk == U.K_XMM
+        x_src_lo = torch.where(k_xmm, x_sreg[:, 0], l1_lo)
+        x_src_hi = torch.where(k_xmm, x_sreg[:, 1], l1_hi)
+        gpr_src = read_reg(gpr, d.sr, opsize)
+    if g_sse:
+        v = F.sse(d, rf, x_dst[:, 0], x_dst[:, 1], x_src_lo, x_src_hi,
+                  x_sreg[:, 0], x_sreg[:, 1], l1_lo, gpr_src,
+                  read_reg(gpr, d.sr, full(2)))
+        ssealu_gpr = (sub == U.SSE_PMOVMSKB) | (sub == U.SSE_PEXTRW)
+        w1 += [(is_ssemov, (sub == 2) & dk_reg, None, x_sreg[:, 0], None),
+               (is_ssealu, ssealu_gpr, None, v["gpr"], 4)]
+        rf_rows.append((is_ssealu & (sub == U.SSE_PTEST), v["ptest_rf"]))
+        st_writes.append((is_ssemov, true))
+        # movhps to memory (sub 5) stores the high limb
+        st_rows.append((is_ssemov, torch.where(sub == 5, x_sreg[:, 1],
+                                               x_sreg[:, 0])))
+        wx_rows += [(is_ssemov & (sub != 2) & (d.dk == U.K_XMM),
+                     v["mov_lo"], v["mov_hi"]),
+                    (is_ssealu & ~ssealu_gpr & (sub != U.SSE_PTEST),
+                     v["alu_lo"], v["alu_hi"])]
+    if g_fp:
+        v = F.ssefp(d, rf, x_dst[:, 0], x_dst[:, 1], x_src_lo, x_src_hi,
+                    l1_lo, gpr_src)
+        w1.append((is_ssefp, v["is_f2i"], None, v["f2i"], None))
+        rf_rows.append((is_ssefp & v["is_comi"], v["ucomi_rf"]))
+        wx_rows.append((is_ssefp & v["writes_xmm"], v["lo"], v["hi"]))
+        fp_denorm = is_ssefp & v["denorm"]
+    if g_x87:
+        x87v = F.x87(d, rf, m.fpst, m.fpcw, m.fpsw, m.fptw, m.mxcsr, l1_lo)
+        w1.append((is_x87, sub == U.X87_FNSTSW_AX, None, m.fpsw & 0xFFFF,
+                   2))
+        rf_rows.append((is_x87 & (sub == U.X87_COMI), x87v["comi_rf"]))
+        st_rows.append((is_x87, x87v["store"]))
+        fp_denorm = fp_denorm | (is_x87 & ~x87_oracle & x87v["denorm"])
+
     # -- the memory store --------------------------------------------------
     mem_class_writes = _sel([c for c, _ in st_writes],
                             [v for _, v in st_writes], false)
     st_need = live & ~unsupported & ~rep_skip & (
         ((d.dk == U.K_MEM) & mem_class_writes) | is_push | is_pushf
-        | is_call | is_enter | s_movs | s_stos)
+        | is_call | is_enter | s_movs | s_stos | x87_store)
     st_lo = _sel([c for c, _ in st_rows], [v for _, v in st_rows], zero)
     st_hi = torch.where(s_movs, l1_hi, zero) if g_str else zero
+    if g_sse:
+        st_hi = torch.where(is_ssemov, x_sreg[:, 1], st_hi)
     ts_ok0 = t6.ok[:, 4] & t6.writable[:, 4]
     store_fault = st_need & ~(ts_ok0 & t6.ok[:, 5] & t6.writable[:, 5])
     page_fault = live & ~unsupported & ~is_crash & (fault1 | fault2
                                                     | store_fault)
-    commit_pre = live & ~unsupported & ~is_crash & ~de & ~page_fault
+    # FP lanes that touch the denormal range go to the oracle
+    fp_oracle = live & ~unsupported & ~page_fault & fp_denorm
+    commit_pre = live & ~unsupported & ~is_crash & ~de & ~page_fault \
+        & ~fp_oracle
     store_ok = store_window3(image, m.overlay, t6.gpa[:, 4], t6.gpa[:, 5],
                              st_size, st_lo, st_hi, st_need & commit_pre)
     ovf = st_need & commit_pre & ~store_ok
@@ -1054,11 +1130,11 @@ def step(tab: UopTable, image: MemImage, m: Machine, limit: int,
         for attr, value in state.items():
             setattr(m, attr, value)
 
-    chain = _sel([miss, at_bp, smc, unsupported, page_fault, de, is_crash,
-                  ovf, cr3_changed, timed],
+    chain = _sel([miss, at_bp, smc, unsupported, page_fault, fp_oracle, de,
+                  is_crash, ovf, cr3_changed, timed],
                  [int(s) for s in (
                      S.NEED_DECODE, S.BREAKPOINT, S.SMC, S.UNSUPPORTED,
-                     S.PAGE_FAULT, S.DIVIDE_ERROR, S.CRASH,
+                     S.PAGE_FAULT, S.UNSUPPORTED, S.DIVIDE_ERROR, S.CRASH,
                      S.OVERLAY_FULL, S.CR3_CHANGE, S.TIMEDOUT)],
                  torch.full_like(m.status, _RUNNING))
     fault_gva = torch.where(
@@ -1070,6 +1146,39 @@ def step(tab: UopTable, image: MemImage, m: Machine, limit: int,
     fault_write = torch.where(
         enabled & page_fault,
         (~fault1 & ~fault2).to(torch.int32), m.fault_write)
+
+    # -- xmm and x87 state ---------------------------------------------------
+    if wx_rows:
+        conds = [c for c, _, _ in wx_rows]
+        wx = false
+        for c in conds:
+            wx = wx | c
+        wx = commit & wx
+        new_x = x_dst.clone()
+        new_x[:, 0] = torch.where(wx, _sel(conds, [r[1] for r in wx_rows],
+                                           zero), x_dst[:, 0])
+        new_x[:, 1] = torch.where(wx, _sel(conds, [r[2] for r in wx_rows],
+                                           zero), x_dst[:, 1])
+        m.xmm = m.xmm.index_put((lanes, xr), new_x)
+    if g_sse:
+        # vzeroall (sub 0) zeroes the whole file, vzeroupper (sub 1) the
+        # upper YMM halves (limbs 2-3)
+        vz = commit & is_(U.OPC_VZEROALL)
+        limb = torch.arange(4, device=rip.device)
+        vz_limbs = (vz & (sub == 0))[:, None] | (vz[:, None] & (limb >= 2))
+        m.xmm = torch.where(vz_limbs[:, None, :], 0, m.xmm)
+    if g_x87:
+        x87c = commit & is_x87
+        widx = x87v["w1_idx"][:, None]
+        fpst = m.fpst.scatter(1, widx, torch.where(
+            x87c & x87v["w1_en"], x87v["w1_val"],
+            torch.gather(m.fpst, 1, widx)[:, 0])[:, None])
+        phi = x87v["phi"][:, None]
+        m.fpst = fpst.scatter(1, phi, torch.where(
+            x87c & x87v["fxch"], x87v["st0"],
+            torch.gather(fpst, 1, phi)[:, 0])[:, None])
+        for name in ("fpcw", "fpsw", "fptw", "mxcsr"):
+            setattr(m, name, torch.where(x87c, x87v[name], getattr(m, name)))
 
     m.gpr, m.rip, m.rflags = new_gpr, new_rip, new_rf
     m.status = torch.where(enabled, chain, m.status).to(torch.int32)
