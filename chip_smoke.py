@@ -127,10 +127,36 @@ Phases (each prints one line; any failure exits non-zero):
      instructions, wall, the legs' share, device peak; the same batch
      on the CPU (a worker process, burst_any_tier on on both sides):
      every plane and the copy pages equal
+ 21. the fault-tolerance tier on phase 10's window campaign: the same
+     campaign with --supervise --dispatch-timeout 30 --checkpoint-every 1
+     (counts zeroed just before and read just after: K1 launched from
+     supervised windows and the supervised host finish): its final line,
+     outputs/, crashes/ and cov/edge bytes equal phase 10's; supervised
+     dispatches by seam, bounded waits, the integrity, snapshot and
+     checkpoint spans' shares of the wall, checkpoint bytes and seconds;
+     then, in turns with that run, phase 10's campaign writing a target
+     dir (T) and supervised without checkpoints (S): each equal, and the
+     mean wall differences that the target dir, the supervisor and the
+     checkpoints cost
+ 22. scripted faults at full width, one plan (a hang on K1's `fused`
+     seam, an error on a window, a poison on an insert, a hang on a
+     generation; promote_after 1): replayed bit-identically, equal to
+     phase 10's; then a poison on the same lane of three windows, which
+     quarantines it and completes; supervise counters, the rung history
+     (degradations and re-promotions), the rebuilds' seconds, K1
+     launches (replays included) and K2's (one per Runner, rebuilds
+     included)
+ 23. phase 21's campaign in a subprocess, SIGKILLed once its checkpoint
+     has been written twice, then `campaign --resume` in a new process:
+     the final line, outputs/ and crashes/ equal phase 21's; the batch it
+     resumed after and whether it fell back to .prev
+     (phases 21-23 also run at 64 lanes on the card and, in a worker
+     process, on the CPU: equal, and equal to phase 11 but for the
+     quarantine run)
 
 Phase 8 fails unless its host mutator is the native engine (the one the
 reference CLI picks).  Every phase always runs, at the sizes above.
-Phases 6, 9, 11, 14 and 17 and phase 20's comparison run
+Phases 6, 9, 11, 14 and 17 and the comparisons of phases 20-23 run
 last, after the timed phases: their CPU sides run in worker processes started
 together (spawned, and joined before the script ends) while this process
 runs their card sides.  The card's nvidia-smi line
@@ -214,6 +240,11 @@ WINDOW = ["--mutator", "devmangle", "--megachunk", "8"]
 WCAMPAIGN = CAMPAIGN + WINDOW
 # phase 13: decode-cache misses serviced on the card inside the windows
 DCAMPAIGN = WCAMPAIGN + ["--device-decode"]
+# phases 21-23: the window campaign supervised (a 30 s watchdog) and
+# checkpointed after every batch; phase 22's quarantined lane
+SUPERVISE = ["--supervise", "--dispatch-timeout", "30"]
+SCAMPAIGN = WCAMPAIGN + SUPERVISE + ["--checkpoint-every", "1"]
+QUARANTINE_LANE = 9
 
 KCAMPAIGN = ["campaign", "--name", "demo_kernel", "--fused-step", "on",
              "--lanes", str(LANES), "--runs", str(RUNS), "--limit",
@@ -1541,7 +1572,7 @@ def phase_window_campaign(k1: dict, k2: dict, record: dict) -> None:
         "occupancy": occupancy,
         "instructions": instr, "spans": span_s, "bytes_in_use": in_use,
         "peak_bytes": peak, "statuses": counts,
-        "crashes": loop.stats.crashes}
+        "crashes": loop.stats.crashes, "final_line": stats_line(loop)}
     window_out = outcome(loop)
     backend.restore()
     del loop, backend
@@ -2359,6 +2390,456 @@ def phase_new_targets_card_vs_cpu(cpu) -> None:
               f"{card[5]:.1f} s, cpu {want[5]:.1f} s in a worker process)")
 
 
+# ---------------------------------------------------------------------------
+# phases 21-23: the fault-tolerance tier on phase 10's window campaign
+# ---------------------------------------------------------------------------
+
+def stats_line(loop) -> str:
+    """The final `#N cov: .. corp: ..` line without its rate and uptime
+    (the only fields that depend on the clock)."""
+    return strip_clock(loop.stats.line(len(loop.corpus), loop._coverage()))
+
+
+def strip_clock(line: str) -> str:
+    import re
+
+    return re.sub(r" exec/s: \S+| uptime: \S+", "", line.strip())
+
+
+def tree_digests(root: Path) -> tuple:
+    """(outputs/ content digests, crashes/ names) of a campaign's target
+    directory."""
+    from wtf_tpu_torch.utils.hashing import hex_digest
+
+    outputs = sorted(hex_digest(p.read_bytes())
+                     for p in (root / "outputs").iterdir()) \
+        if (root / "outputs").is_dir() else []
+    crashes = sorted(p.name for p in (root / "crashes").iterdir()) \
+        if (root / "crashes").is_dir() else []
+    return outputs, crashes
+
+
+class SeamCount:
+    """A supervisor fault hook that fires nothing and counts dispatches
+    by seam (armed through chaos_device's hook global)."""
+
+    def __init__(self):
+        self.by_seam = {}
+
+    def _device_hook(self, seam: str, index: int):
+        self.by_seam[seam] = self.by_seam.get(seam, 0) + 1
+        return None
+
+
+class EventLog:
+    """Keeps the supervisor's events (watchdog, rebuild, degrade,
+    promote, poisoned-lane) for the rung history."""
+
+    def __init__(self):
+        self.events = []
+
+    def emit(self, type, **fields):  # noqa: A002
+        self.events.append((type, fields))
+
+    def heartbeat(self, *args, **kwargs):
+        pass
+
+
+def fault_plan(lanes_poison: int):
+    """Phase 22's one plan: a hang on K1 (`fused`, in the first window's
+    host finish), an error on a window (`megachunk`), a poison on an
+    insert (`device-insert`, in the batch-at-a-time replay that follows)
+    and a hang on a generation (`devmut-generate`, the third after the
+    poison: the next batch's prelaunch)."""
+    from wtf_tpu_torch.testing.faultinject import SeamFaultPlan
+
+    return SeamFaultPlan([
+        ("fused", "device-hang"), ("megachunk", "device-error"),
+        ("device-insert", ("device-poison", lanes_poison)),
+        ("devmut-generate", "device-hang", 3)])
+
+
+def quarantine_plan():
+    """A poison on the same lane of three windows: quarantined at the
+    third (the supervisor's default threshold)."""
+    from wtf_tpu_torch.testing.faultinject import SeamFaultPlan
+
+    return SeamFaultPlan([("megachunk", ("device-poison", QUARANTINE_LANE))]
+                         * 3)
+
+
+def faulted_campaign(argv: list, plan) -> tuple:
+    """Run `argv` under chaos_device(plan) with promote_after=1 (a clean
+    batch wins one rung back).  Returns (loop, event log, wall)."""
+    import torch
+
+    from wtf_tpu_torch import cli
+    from wtf_tpu_torch.testing.faultinject import chaos_device
+
+    loop = cli.build_campaign(cli.build_parser().parse_args(argv))
+    sup = loop.backend.supervisor
+    sup.promote_after = 1
+    log = EventLog()
+    sup.events = log
+    t0 = time.perf_counter()
+    with chaos_device(plan):
+        loop.fuzz(runs=loop_runs(argv))
+    if loop.backend.runner.device.type == "cuda":
+        torch.cuda.synchronize()
+    return loop, log, time.perf_counter() - t0
+
+
+def loop_runs(argv: list) -> int:
+    return int(argv[argv.index("--runs") + 1])
+
+
+def rung_history(log: EventLog) -> list:
+    return [f"{kind}:{fields['rung']}" for kind, fields in log.events
+            if kind in ("degrade", "promote")]
+
+
+def timed_campaign(argv: list) -> tuple:
+    """(outcome, wall) of the 16384-run campaign `argv` writing a fresh
+    target dir; the wall runs from the campaign's build to the card's
+    last work, as phase 21's own run."""
+    import torch
+
+    from wtf_tpu_torch import cli
+
+    with tempfile.TemporaryDirectory() as tmp:
+        a = cli.build_parser().parse_args(
+            argv + ["--target", str(Path(tmp) / "t")])
+        t0 = time.perf_counter()
+        loop = cli.build_campaign(a)
+        loop.fuzz(runs=RUNS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out = outcome(loop)
+    del loop
+    torch.cuda.empty_cache()
+    return out, wall
+
+
+def phase_supervised(k1: dict, k2: dict, record: dict,
+                     window_out: tuple) -> tuple:
+    """Phase 21: phase 10's window campaign supervised, with a watchdog
+    and a checkpoint after every batch: equal to phase 10's; then its
+    cost in parts, in turns.  Returns (final line, outputs/ digests) for
+    phase 23."""
+    import torch
+
+    from wtf_tpu_torch import cli
+    from wtf_tpu_torch.interp import pstep
+    from wtf_tpu_torch.testing.faultinject import chaos_device
+
+    with tempfile.TemporaryDirectory() as tmp:
+        target = Path(tmp) / "t21"
+        a = cli.build_parser().parse_args(SCAMPAIGN + ["--target",
+                                                       str(target)])
+        for name in pstep.LAUNCHES:
+            pstep.LAUNCHES[name] = 0
+        seams = SeamCount()
+        log = EventLog()
+        t0 = time.perf_counter()
+        loop = cli.build_campaign(a)
+        loop.backend.supervisor.events = log
+        with chaos_device(seams):
+            loop.fuzz(runs=RUNS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(pstep.LAUNCHES)
+        tree = tree_digests(target)
+        ckpt = target / "checkpoint" / "checkpoint.json"
+        ckpt_bytes = ckpt.stat().st_size
+        blob_bytes = sum(p.stat().st_size for p in
+                         (target / "checkpoint" / "corpus").iterdir())
+    reg = loop.registry
+    spans = reg.spans
+    line = stats_line(loop)
+    out = outcome(loop)
+    check(all(out[i] == window_out[i] for i in range(4)),
+          f"the supervised window campaign differs from phase 10's "
+          f"(corpus, crashes, cov, edge equal: "
+          f"{[out[i] == window_out[i] for i in range(4)]}; rebuilds "
+          f"{reg.counter('supervise.rebuilds').value}, poisoned lanes "
+          f"{reg.counter('supervise.poisoned_lanes').value})")
+    check(line == record["window_campaign"]["final_line"],
+          f"final line {line!r} differs from phase 10's "
+          f"{record['window_campaign']['final_line']!r}")
+    check(tree[0] == sorted(window_out[0]),
+          "outputs/ differs from phase 10's corpus")
+    check(tree[1] == sorted(window_out[1]),
+          "crashes/ differs from phase 10's crash names")
+    dispatches = reg.counter("supervise.dispatches").value
+    waits = reg.counter("supervise.bounded_waits").value
+    saves = reg.counter("campaign.checkpoints").value
+    check(launches["fused_step"] > 0 and dispatches > 0
+          and seams.by_seam.get("megachunk", 0) > 0,
+          f"K1 did not run under supervision: {launches}, {seams.by_seam}")
+    check(reg.counter("supervise.rebuilds").value == 0,
+          f"a fault-free supervised campaign rebuilt: {log.events[:6]}")
+    check(saves == loop.batches_done, f"{saves} checkpoints for "
+          f"{loop.batches_done} batches")
+    share = {p: spans.seconds(p) / wall
+             for p in ("integrity", "supervise-snapshot", "checkpoint")}
+    per_save = spans.seconds("checkpoint") / max(saves, 1)
+    print(f"phase 21: supervised window campaign (--dispatch-timeout 30, "
+          f"--checkpoint-every 1) == phase 10: {line}; {len(tree[0])} "
+          f"outputs, {len(tree[1])} crashes, equal cov/edge bytes; "
+          f"{wall:.2f} s = {loop.stats.testcases / wall:.1f} execs/s; "
+          f"supervised dispatches {dispatches} ({seams.by_seam}), bounded "
+          f"waits {waits}; K1 launches {launches['fused_step']}, K2 "
+          f"{launches['probe']}; integrity {share['integrity']:.4f}, "
+          f"supervise-snapshot {share['supervise-snapshot']:.4f}, "
+          f"checkpoint {share['checkpoint']:.4f} of the wall; "
+          f"{saves} checkpoints of {ckpt_bytes} bytes "
+          f"(+{blob_bytes} bytes of corpus blobs), {per_save * 1e3:.1f} ms "
+          f"per save")
+    k1["launches_by_path"]["demo_tlv window supervised"] = \
+        launches["fused_step"]
+    k2["launches_by_path"]["demo_tlv window supervised"] = launches["probe"]
+    record["supervised"] = {
+        "wall_s": wall, "dispatches": dispatches, "by_seam": seams.by_seam,
+        "bounded_waits": waits, "k1_launches": launches["fused_step"],
+        "k2_launches": launches["probe"], "wall_shares": share,
+        "checkpoints": saves, "checkpoint_bytes": ckpt_bytes,
+        "blob_bytes": blob_bytes, "seconds_per_save": per_save,
+        "final_line": line}
+    del loop
+    torch.cuda.empty_cache()
+
+    # the cost in parts, in turns T S C S T after the run above (the
+    # first C): T is phase 10's campaign writing outputs/ and crashes/
+    # into a target dir, S adds the supervisor (watchdog, integrity,
+    # snapshot), C adds a checkpoint after every batch
+    argvs = {"T": WCAMPAIGN, "S": WCAMPAIGN + SUPERVISE, "C": SCAMPAIGN}
+    walls = {"T": [], "S": [], "C": [wall]}
+    for key in "TSCST":
+        got, seconds = timed_campaign(argvs[key])
+        check(got[:4] == window_out[:4],
+              f"phase 21's {key} run differs from phase 10's")
+        walls[key].append(seconds)
+    mean = {k: sum(v) / len(v) for k, v in walls.items()}
+    p10 = record["window_campaign"]["turns_wall_s"]["8"]
+    parts = {"target dir": mean["T"] - sum(p10) / len(p10),
+             "supervisor": mean["S"] - mean["T"],
+             "checkpoints": mean["C"] - mean["S"]}
+    print(f"phase 21: in turns (C, T, S, C, S, T), equal results: walls "
+          f"T (phase 10 + --target) {walls['T']}, S (+ {' '.join(SUPERVISE)}"
+          f") {walls['S']}, C (+ --checkpoint-every 1) {walls['C']}; "
+          f"phase 10's {p10}; mean differences: "
+          + ", ".join(f"{k} {v:+.4f} s ({v / mean['C']:+.4f} of C)"
+                      for k, v in parts.items())
+          + f"; checkpoint span of the first C "
+            f"{spans.seconds('checkpoint'):.4f} s")
+    record["supervised"].update(turns_wall_s=walls, parts_s=parts)
+    return line, tree
+
+
+def phase_faults(k1: dict, k2: dict, record: dict,
+                 window_out: tuple) -> None:
+    """Phase 22: one scripted plan of a hang on K1, an error on a window,
+    a poison on an insert and a hang on a generation, replayed
+    bit-identically (equal to phase 10's); then a poison repeated at one
+    lane until it is quarantined (that run completes)."""
+    import torch
+
+    from wtf_tpu_torch.interp import pstep
+
+    argv = WCAMPAIGN + SUPERVISE
+    rec = {}
+    for name, plan in (("faults", fault_plan(7)),
+                       ("quarantine", quarantine_plan())):
+        for key in pstep.LAUNCHES:
+            pstep.LAUNCHES[key] = 0
+        loop, log, wall = faulted_campaign(argv, plan)
+        launches = dict(pstep.LAUNCHES)
+        reg = loop.registry
+        sup = loop.backend.supervisor
+        counters = {k: reg.counter(f"supervise.{k}").value for k in (
+            "dispatches", "bounded_waits", "watchdog_fires",
+            "device_errors", "poisoned_lanes", "batch_retries", "rebuilds",
+            "degradations", "promotions", "integrity_checks")}
+        history = rung_history(log)
+        rebuild_s = reg.spans.seconds("supervise-recover")
+        fired = [f[:2] for f in plan.fired]
+        check(not plan.seam_faults, f"phase 22 {name}: faults left unfired "
+              f"{plan.seam_faults} (fired {fired})")
+        check(counters["degradations"] >= 1 and counters["promotions"] >= 1,
+              f"phase 22 {name}: rung history {history}")
+        check(launches["fused_step"] > 0,
+              f"phase 22 {name}: K1 never launched")
+        check(launches["probe"] == 1 + counters["rebuilds"],
+              f"phase 22 {name}: K2 launched {launches['probe']} times for "
+              f"{counters['rebuilds']} rebuilds")
+        check(loop.stats.testcases == RUNS,
+              f"phase 22 {name}: {loop.stats.testcases} testcases")
+        if name == "faults":
+            out = outcome(loop)
+            check(all(out[i] == window_out[i] for i in range(4)),
+                  f"phase 22: the faulted campaign differs from phase "
+                  f"10's (equal: "
+                  f"{[out[i] == window_out[i] for i in range(4)]}; "
+                  f"{counters}; fired {fired})")
+            check(stats_line(loop) ==
+                  record["window_campaign"]["final_line"],
+                  "phase 22: the faulted campaign's final line differs")
+            check(counters["rebuilds"] == 4 and sup.quarantined == set(),
+                  f"phase 22: {counters}, quarantined {sup.quarantined}")
+        else:
+            check(sup.quarantined == {QUARANTINE_LANE},
+                  f"phase 22: quarantined {sup.quarantined}")
+            rec["quarantine_outcome"] = outcome(loop)[:4]
+        print(f"phase 22: {name}: fired {fired}; supervise counters "
+              f"{counters}; rung history {history}; quarantined "
+              f"{sorted(sup.quarantined)}; rebuilds took "
+              f"{rebuild_s:.2f} s of the {wall:.2f} s wall "
+              f"({rebuild_s / max(counters['rebuilds'], 1):.2f} s each); "
+              f"K1 launches {launches['fused_step']} (replays included), "
+              f"K2 {launches['probe']} (1 + one per rebuild); "
+              + (f"equal to phase 10: {stats_line(loop)}" if name == "faults"
+                 else f"{loop.stats.testcases} testcases, "
+                      f"{len(loop.corpus)} corpus entries"))
+        k1["launches_by_path"][f"demo_tlv window {name}"] = \
+            launches["fused_step"]
+        k2["launches_by_path"][f"demo_tlv window {name}"] = launches["probe"]
+        rec[name] = {"wall_s": wall, "counters": counters,
+                     "rung_history": history, "rebuild_s": rebuild_s,
+                     "fired": fired, "k1_launches": launches["fused_step"],
+                     "k2_launches": launches["probe"]}
+        del loop
+        torch.cuda.empty_cache()
+    record["faults"] = rec
+
+
+def phase_kill_resume(record: dict, supervised: tuple) -> None:
+    """Phase 23: phase 21's campaign in a subprocess, SIGKILLed once its
+    checkpoint has been written twice, then `campaign --resume` in a new
+    process: the same final line and outputs/ as phase 21."""
+    import os
+    import signal
+
+    line21, tree21 = supervised
+    env = dict(os.environ, PYTHONUNBUFFERED="1")
+    with tempfile.TemporaryDirectory() as tmp:
+        target = Path(tmp) / "t23"
+        ckpt = target / "checkpoint"
+        argv = [sys.executable, "-m", "wtf_tpu_torch"] + SCAMPAIGN + [
+            "--target", str(target)]
+        t0 = time.perf_counter()
+        victim = subprocess.Popen(argv, cwd=Path(__file__).resolve().parent,
+                                  env=env, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+        try:
+            while victim.poll() is None and not (
+                    ckpt / "checkpoint.json.prev").exists():
+                time.sleep(0.01)
+            killed = victim.poll() is None
+            if killed:
+                victim.send_signal(signal.SIGKILL)
+            victim.communicate(timeout=120)
+        finally:
+            if victim.poll() is None:
+                victim.kill()
+                victim.wait()
+        victim_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        resumed = subprocess.run(argv + ["--resume", str(ckpt)],
+                                 cwd=Path(__file__).resolve().parent,
+                                 env=env, capture_output=True, text=True,
+                                 timeout=600)
+        resume_s = time.perf_counter() - t1
+        check(resumed.returncode in (0, 2),
+              f"phase 23: the resumed campaign failed: "
+              f"{resumed.stderr[-2000:]}")
+        lines = resumed.stdout.splitlines()
+        note = [ln for ln in lines if ln.startswith("resumed at batch")]
+        final = [ln for ln in lines if ln.startswith("#")]
+        check(bool(note) and bool(final),
+              f"phase 23: no resume note or final line: {lines[-5:]}")
+        tree = tree_digests(target)
+    line = strip_clock(final[-1])
+    check(line == line21, f"phase 23: final line {line!r} differs from "
+          f"phase 21's {line21!r}")
+    check(tree == tree21, "phase 23: outputs/ or crashes/ differ from "
+          "phase 21's")
+    after = int(note[0].split()[3].rstrip(":"))
+    fell_back = "from .prev" in note[0]
+    print(f"phase 23: SIGKILL {'sent' if killed else 'not needed (the '
+                                'campaign ended first)'} after "
+          f"{victim_s:.2f} s; `campaign --resume` in a new process "
+          f"({resume_s:.2f} s) resumed after batch {after}, fell back to "
+          f".prev: {fell_back}; == phase 21: {line}, {len(tree[0])} "
+          f"outputs, {len(tree[1])} crashes")
+    record["kill_resume"] = {"killed": killed, "victim_s": victim_s,
+                             "resume_s": resume_s, "resumed_after": after,
+                             "fell_back": fell_back}
+
+
+def small_tier(device: str) -> dict:
+    """The CPU twins of phases 21-23 (and their card sides), at 64 lanes
+    and 256 runs: the supervised window campaign, the faulted one, the
+    quarantine one, and the window campaign killed at batch 2 and
+    resumed in a fresh loop.  Returns {name: outcome[:4]}."""
+    from wtf_tpu_torch import cli
+    from wtf_tpu_torch.resume import load_campaign, restore_campaign
+    from wtf_tpu_torch.testing.faultinject import fuzz_until_killed
+
+    base = ["campaign", "--name", "demo_tlv", "--fused-step", "on",
+            "--lanes", "64", "--runs", "256", "--limit", "20000",
+            "--max_len", "96", "--seed", "5", "--device", device, *WINDOW,
+            *SUPERVISE]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = Path(tmp) / "ck"
+        a = cli.build_parser().parse_args(
+            base + ["--checkpoint-every", "1", "--checkpoint-dir", str(ck)])
+        out["supervised"] = outcome(cli.campaign(a))[:4]
+        for name, plan in (("faults", fault_plan(7)),
+                           ("quarantine", quarantine_plan())):
+            loop, _, _ = faulted_campaign(base, plan)
+            out[name] = outcome(loop)[:4] + (
+                [f[:2] for f in plan.fired], sorted(
+                    loop.backend.supervisor.quarantined))
+        ck2 = Path(tmp) / "ck2"
+        victim = cli.build_campaign(cli.build_parser().parse_args(
+            base + ["--checkpoint-every", "1", "--checkpoint-dir",
+                    str(ck2)]))
+        fuzz_until_killed(victim, 256, kill_at_batch=2)
+        loop = cli.build_campaign(cli.build_parser().parse_args(
+            base + ["--checkpoint-every", "1", "--checkpoint-dir",
+                    str(ck2)]))
+        state, _ = load_campaign(ck2)
+        restore_campaign(loop, state, ck2)
+        loop.fuzz(256)
+        out["resumed"] = outcome(loop)[:4]
+    return out
+
+
+def phase_tier_card_vs_cpu(cpu, card_window: tuple) -> None:
+    """Phases 21-23 at 64 lanes: the card equals the CPU on every run,
+    and the runs without repeated poison equal the unsupervised window
+    campaign of phase 11."""
+    t0 = time.perf_counter()
+    card = small_tier("cuda")
+    card_s = time.perf_counter() - t0
+    want = cpu["fault tolerance"].result()
+    for name in ("supervised", "faults", "resumed", "quarantine"):
+        check(card[name] == want[name],
+              f"64-lane {name} campaign differs between card and cpu")
+    for name in ("supervised", "faults", "resumed"):
+        check(all(card[name][i] == card_window[i] for i in range(4)),
+              f"64-lane {name} campaign differs from phase 11's window "
+              f"campaign")
+    check(card["quarantine"][5] == [QUARANTINE_LANE],
+          f"64-lane quarantine: {card['quarantine'][5]}")
+    print(f"phases 21-23: 64-lane 256-run supervised, faulted (fired "
+          f"{card['faults'][4]}), killed-and-resumed and quarantine "
+          f"(fired {card['quarantine'][4]}, quarantined "
+          f"{card['quarantine'][5]}) window campaigns: card == cpu, the "
+          f"first three == phase 11 ({card_s:.1f} s on the card)")
+
+
 def start_cpu_references(pool) -> dict:
     """The CPU sides of phases 6, 9, 11, 14, 17 and 20, started together
     in worker processes once the card's timed phases are done."""
@@ -2378,7 +2859,8 @@ def start_cpu_references(pool) -> dict:
                                   "cpu"),
             "demo_spin": (small_campaign, "demo_spin", "cpu",
                           SPIN_SMALL_LIMIT, (), True),
-            "fp loop": (fp_loop_cpu,)}
+            "fp loop": (fp_loop_cpu,),
+            "fault tolerance": (small_tier, "cpu")}
     for name in NEW_TARGETS:
         jobs[name] = (small_campaign, name, "cpu", 100000, (), True)
     threads = max(1, (os.cpu_count() or 1) // len(jobs))
@@ -2421,9 +2903,12 @@ def main(argv=None) -> int:
     phase_spin(k1, k2, record)
     phase_step_fp(dev, record)
     fp_card = phase_fp_loop(k1, k2, record)
-    # the CPU references of phases 6, 9, 11, 14, 17 and 20 run in worker
-    # processes, after every timed phase, while this process runs their
-    # card sides
+    supervised = phase_supervised(k1, k2, record, window_out)
+    phase_faults(k1, k2, record, window_out)
+    phase_kill_resume(record, supervised)
+    # the CPU references of phases 6, 9, 11, 14, 17, 20 and 21-23 run in
+    # worker processes, after every timed phase, while this process runs
+    # their card sides
     with ProcessPoolExecutor(
             max_workers=12, mp_context=multiprocessing.get_context(
                 "spawn")) as pool:
@@ -2434,6 +2919,7 @@ def main(argv=None) -> int:
         phase_dd_card_vs_cpu(cpu, card_window)
         phase_new_targets_card_vs_cpu(cpu)
         phase_fp_loop_card_vs_cpu(cpu, fp_card)
+        phase_tier_card_vs_cpu(cpu, card_window)
 
     kernels = {"kernels": [k1, k2]}
     if args.out is not None:

@@ -263,3 +263,92 @@ def assert_machines_equal(jm: JMachine, tm, skip=(), where="") -> None:
         raise AssertionError(f"{where}: planes differ: {bad}\n"
                              + "\n".join(detail))
 
+
+
+# ---------------------------------------------------------------------------
+# campaigns
+# ---------------------------------------------------------------------------
+
+TLV_SEED_INPUT = b"\x01\x04AAAA\x02\x08BBBBBBBB"   # build_tlv_campaign's
+
+
+def build_port_tlv_campaign(n_lanes: int = 64, mutator: str = "mangle",
+                            limit: int = 100_000, seed: int = 0x77F,
+                            max_len: int = 0x400, megachunk: int = 0,
+                            **backend_kwargs):
+    """The port's counterpart of wtf_tpu.analysis.trace.build_tlv_campaign
+    on the CPU: a demo_tlv FuzzLoop with the backend initialized, target
+    init done, one TLV seed in the corpus, and the mutation engine picked
+    by name ("mangle" = best host engine; "devmangle" = the device
+    engine)."""
+    import random
+
+    from wtf_tpu_torch.backend.gpu import GpuBackend
+    from wtf_tpu_torch.fuzz.corpus import Corpus
+    from wtf_tpu_torch.fuzz.loop import FuzzLoop
+    from wtf_tpu_torch.fuzz.mutator import create_mutator
+    from wtf_tpu_torch.fuzz.native_mutator import best_mangle_mutator
+    from wtf_tpu_torch.harness import demo_tlv
+
+    backend = GpuBackend(demo_tlv.build_snapshot(), n_lanes=n_lanes,
+                         limit=limit, device="cpu", **backend_kwargs)
+    backend.initialize()
+    demo_tlv.TARGET.init(backend)
+    rng = random.Random(seed)
+    corpus = Corpus(rng=rng)
+    corpus.add(TLV_SEED_INPUT)
+    mut = (best_mangle_mutator(rng, max_len) if mutator == "mangle"
+           else create_mutator(mutator, rng, max_len))
+    return FuzzLoop(backend, demo_tlv.TARGET, mut, corpus,
+                    megachunk=megachunk)
+
+
+def campaign_fingerprint(loop) -> dict:
+    """Everything the resume and supervision parity bars name, bit for
+    bit, from either package's FuzzLoop (the aggregate bitmaps through
+    the backend's coverage_state, uint32 words in both)."""
+    from wtf_tpu.utils.hashing import hex_digest
+
+    cov, edge = loop.backend.coverage_state()
+    return {
+        "cov": np.asarray(cov).tobytes(),
+        "edge": np.asarray(edge).tobytes(),
+        "cov_bits": loop._coverage(),
+        "corpus_order": [hex_digest(d) for d in loop.corpus],
+        "crashes": sorted(loop.crash_names),
+        "buckets": sorted(loop.crash_buckets),
+        "testcases": loop.stats.testcases,
+        "new_coverage": loop.stats.new_coverage,
+    }
+
+
+def record_devmut_stream(loop, into: list) -> None:
+    """Capture every executed devmut batch's exact bytes (words + lens)
+    of either package's DevMangleMutator."""
+    original = loop.mutator.take_batch
+
+    def take_batch():
+        words, lens = original()
+        into.append((np.asarray(words).tobytes(),
+                     np.asarray(lens).tobytes()))
+        return words, lens
+
+    loop.mutator.take_batch = take_batch
+
+
+def checkpoint_at_every_boundary(loop, ckpt_dir, copies_dir) -> None:
+    """Checkpoint `loop` after every batch into `ckpt_dir` and copy the
+    directory to `copies_dir/<batch>` at each boundary: the disk state a
+    kill at that boundary leaves behind (the checkpoint is written before
+    the heartbeat, where fuzz_until_killed kills)."""
+    import shutil
+    from pathlib import Path
+
+    loop.checkpoint_dir, loop.checkpoint_every = Path(ckpt_dir), 1
+    original = loop._heartbeat
+
+    def heartbeat(print_stats):
+        shutil.copytree(ckpt_dir, Path(copies_dir) / str(loop.batches_done))
+        original(print_stats)
+
+    loop._heartbeat = heartbeat

@@ -19,6 +19,13 @@ Device-generated batches (wtf_tpu_torch/devmut) run through
 `run_megachunk` (wtf_tpu_torch/fuzz/megachunk.py); with device decode the
 window's published decode entries are adopted into the host cache at
 harvest (`_harvest_device_decode`).
+
+Supervision (wtf_tpu_torch/supervise): the backend owns the Supervisor
+and hands it to every Runner it builds, a recovery's rebuilt one
+included; the integrity gate runs before every harvest, and lanes in
+quarantine are parked idle at insert and kept out of the coverage merge.
+`coverage_state` / `restore_coverage_state` are the coverage half of a
+campaign checkpoint (wtf_tpu_torch/resume).
 """
 
 from __future__ import annotations
@@ -54,6 +61,21 @@ class GpuBackend(Backend):
         self.limit = limit
         self.registry, self.events = telemetry.resolve(
             registry=registry, events=events)
+        # the supervisor outlives the Runner it guards: initialize() hands
+        # it to every (re)built Runner, so dispatch indices, ladder state
+        # and the quarantine set survive recovery rebuilds
+        from wtf_tpu_torch.supervise import Supervisor
+
+        self.supervisor = Supervisor(
+            registry=self.registry, events=self.events,
+            enabled=bool(runner_kwargs.pop("supervise", False)),
+            dispatch_timeout=float(
+                runner_kwargs.pop("dispatch_timeout", 0.0) or 0.0),
+            promote_after=int(runner_kwargs.pop("promote_after", 8)),
+            max_batch_retries=int(
+                runner_kwargs.pop("max_batch_retries", 4)),
+            quarantine_threshold=int(
+                runner_kwargs.pop("quarantine_threshold", 3)))
         self._runner_kwargs = runner_kwargs
         self.runner: Optional[Runner] = None
         self.breakpoints: Dict[int, BreakpointHandler] = {}
@@ -75,6 +97,7 @@ class GpuBackend(Backend):
     def initialize(self) -> None:
         self.runner = Runner(self.snapshot, self.n_lanes,
                              registry=self.registry, events=self.events,
+                             supervisor=self.supervisor,
                              **self._runner_kwargs)
         m = self.runner.machine
         self._agg_cov = torch.zeros_like(m.cov[0])
@@ -121,7 +144,14 @@ class GpuBackend(Backend):
             n_active = self.n_lanes
             if insert is not None:
                 n_active = len(insert)
+                quarantined = runner.supervisor.quarantined
                 for lane, data in enumerate(insert):
+                    if lane in quarantined:
+                        # a poisoned lane parked idle: no insert, terminal
+                        # status, and _finish_batch's include mask keeps
+                        # it out of the coverage merge
+                        view.set_status(lane, StatusCode.OK)
+                        continue
                     with self._bound(view, lane):
                         target.insert_testcase(self, data)
                 for lane in range(n_active, self.n_lanes):
@@ -161,9 +191,17 @@ class GpuBackend(Backend):
             if self._view is not None:
                 runner.push(self._view)
                 self._view = None
+            qmask = runner.supervisor.quarantine_mask()
             with spans.span("device") as sp:
                 runner.device_insert(words, lens, pfns, spec.gva,
                                      spec.len_gpr, spec.ptr_gpr)
+                if qmask is not None:
+                    # park the quarantined lanes terminal so the run loop
+                    # never steps them (the port inserts every lane: the
+                    # masked insert arrives with tenancy)
+                    from wtf_tpu_torch.supervise import integrity
+
+                    integrity.mask_idle(runner.machine, qmask)
                 sp.fence(runner.machine.status)
         statuses = runner.run(bp_handler=self._dispatch_bp)
         self._finish_batch(statuses, self.n_lanes)
@@ -207,6 +245,10 @@ class GpuBackend(Backend):
         reg.counter("megachunk.windows").inc()
         out = self._dispatch_window(mutator, max_batches, n_batches)
         self._agg_cov, self._agg_edge = out.agg_cov, out.agg_edge
+        # integrity gate before the harvest and before the mutator cursor
+        # advances: a LanePoisoned raise here leaves the window fully
+        # replayable (consume_window not yet called)
+        runner.supervisor.raise_if_poisoned(runner, "megachunk")
         # device-decode harvest: adopt the window's published entries into
         # the host cache BEFORE anything can service those rips again (the
         # incomplete path's Runner.run below rebuilds the device table
@@ -300,11 +342,13 @@ class GpuBackend(Backend):
                             device=runner.device)
         spans = self.registry.spans
         with spans.span("device") as sp:
-            out = fn(runner.device_tab(), runner.image, runner.machine,
-                     runner.template, slab_first, slab_rest, seeds, pfns,
-                     spec.gva, finish, self.limit, n_batches,
-                     self._agg_cov, self._agg_edge, spans,
-                     runner.devdec_operands())
+            out = runner.supervisor.dispatch(
+                "megachunk", fn, runner.device_tab(), runner.image,
+                runner.machine, runner.template, slab_first, slab_rest,
+                seeds, pfns, spec.gva, finish, self.limit, n_batches,
+                self._agg_cov, self._agg_edge, spans,
+                runner.devdec_operands(), window=n_batches,
+                sync=lambda o: o.agg_cov)
             sp.fence(out.agg_cov)
         return out
 
@@ -362,11 +406,20 @@ class GpuBackend(Backend):
         and OVERLAY_FULL lanes excluded — the latter ran on truncated
         memory), backend counters, the once-per-batch counter fold."""
         runner = self.runner
+        # integrity gate BEFORE anything consumes the machine: a poisoned
+        # status would crash StatusCode() in result mapping, poisoned
+        # planes would credit coverage.  Raises LanePoisoned (the fuzz
+        # loop's supervision wrapper replays the batch); inert when the
+        # supervisor is disabled.
+        runner.supervisor.raise_if_poisoned(runner, "batch")
+        qmask = runner.supervisor.quarantine_mask()
         with self.registry.spans.span("cov-readback") as sp:
             m = runner.machine
             keep = ((statuses != int(StatusCode.TIMEDOUT))
                     & (statuses != int(StatusCode.OVERLAY_FULL))
                     & (np.arange(self.n_lanes) < n_active))
+            if qmask is not None:
+                keep &= ~qmask  # quarantined lanes never credit coverage
             self._merge(m, keep)
             self._count_statuses(statuses[:n_active])
             self.stats["batches"] += 1
@@ -383,6 +436,26 @@ class GpuBackend(Backend):
                                      m.edge, include)
         self._new_lane = new_lane.cpu().numpy()
         self._last_new_words = new_words.cpu().numpy().view(np.uint32)
+
+    # -- checkpoint/resume (wtf_tpu_torch/resume) --------------------------
+    def coverage_state(self):
+        """(cov words, edge words) aggregate bitmaps as host uint32 arrays
+        — the coverage half of a campaign checkpoint, the same payload
+        the JAX package writes (the device keeps them as int32).  Bit
+        indices are decode-cache entry indices; the checkpoint carries
+        the cache alongside (Runner.checkpoint_state)."""
+        return (self._agg_cov.cpu().numpy().view(np.uint32).copy(),
+                self._agg_edge.cpu().numpy().view(np.uint32).copy())
+
+    def restore_coverage_state(self, cov: np.ndarray,
+                               edge: np.ndarray) -> None:
+        """Install checkpointed aggregate bitmaps (uint32 words) on the
+        runner's device."""
+        dev = self.runner.device
+        self._agg_cov = torch.from_numpy(np.ascontiguousarray(
+            cov, dtype=np.uint32).view(np.int32).copy()).to(dev)
+        self._agg_edge = torch.from_numpy(np.ascontiguousarray(
+            edge, dtype=np.uint32).view(np.int32).copy()).to(dev)
 
     def lane_found_new_coverage(self, lane: int) -> bool:
         return bool(self._new_lane[lane])

@@ -19,6 +19,10 @@ versions of the kernels on the CPU.  `--fused-step on|auto` drives the fused ste
 `--device-decode` services decode-cache misses on the device
 (interp/devdec.py).  `--state DIR` loads the snapshot from DIR (mem.npz or
 mem.dmp, regs.json, symbol-store.json) instead of the target's factory.
+`--supervise` / `--dispatch-timeout` put every device dispatch under the
+supervisor (wtf_tpu_torch/supervise), and `campaign --checkpoint-every` /
+`--resume` write and continue crash-safe checkpoints
+(wtf_tpu_torch/resume).
 """
 
 from __future__ import annotations
@@ -67,6 +71,25 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                         "service rounds fetch the missing code windows in "
                         "one device pass; the host decoder cross-checks "
                         "every device-published entry at harvest")
+    p.add_argument("--supervise", action="store_true",
+                   help="self-healing device runtime (wtf_tpu_torch/"
+                        "supervise): watchdogged dispatches, "
+                        "rebuild-and-replay recovery, the degradation "
+                        "ladder, per-batch integrity checks + lane "
+                        "quarantine")
+    p.add_argument("--dispatch-timeout", type=float, default=0.0,
+                   metavar="SECS",
+                   help="watchdog bound for ONE base-chunk dispatch "
+                        "(scaled by chunk steps and megachunk window); "
+                        "0 = no watchdog.  Implies --supervise")
+
+
+def _supervise_kwargs(args) -> dict:
+    """The backend's supervisor settings: --dispatch-timeout implies
+    --supervise (wtf_tpu/cli.py `_backend_tuning_kwargs`)."""
+    if args.supervise or args.dispatch_timeout:
+        return {"supervise": True, "dispatch_timeout": args.dispatch_timeout}
+    return {}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -115,6 +138,21 @@ def build_parser() -> argparse.ArgumentParser:
                            "host work collapses to the status pull and "
                            "find harvest.  Needs --mutator devmangle and "
                            "a nonzero --limit; 0 = off")
+    camp.add_argument("--checkpoint-every", type=int, default=0,
+                      metavar="N",
+                      help="crash-safe checkpointing (wtf_tpu_torch/"
+                           "resume): persist the resumable campaign state "
+                           "every N batches (atomic tmp+fsync+rename; "
+                           "previous generation kept as .prev).  A kill "
+                           "at any point costs at most one interval")
+    camp.add_argument("--checkpoint-dir", type=Path, default=None,
+                      help="checkpoint directory (default: "
+                           "<target>/checkpoint when --target is given; "
+                           "a --resume dir is reused)")
+    camp.add_argument("--resume", type=Path, default=None, metavar="DIR",
+                      help="resume from a checkpoint dir: coverage, crash "
+                           "set, corpus, RNG and devmut streams restore "
+                           "bit-identically to the uninterrupted run")
 
     snap = sub.add_parser(
         "snapshot", help="convert snapshots between formats")
@@ -149,7 +187,8 @@ def build_backend(target, args, registry: Registry):
     backend = GpuBackend(snapshot, n_lanes=args.lanes, limit=args.limit,
                          registry=registry, events=NULL, device=args.device,
                          fused_step=args.fused_step, fused_k=args.fused_k,
-                         device_decode=args.device_decode)
+                         device_decode=args.device_decode,
+                         **_supervise_kwargs(args))
     with registry.spans.span("init"):
         backend.initialize()
     target.init(backend)
@@ -222,13 +261,25 @@ def mutator_for(target, rng: random.Random, max_len: int):
     return best_mangle_mutator(rng, max_len)
 
 
-def campaign(args):
-    """`campaign`: seed the corpus, build the mutator from --seed, and run
-    the fuzz loop for --runs testcases.  Returns the FuzzLoop."""
+def build_campaign(args):
+    """`campaign` up to its first batch: seed the corpus, build the
+    mutator from --seed and the FuzzLoop, and with --resume restore the
+    checkpoint into it.  Returns the FuzzLoop."""
     from wtf_tpu_torch.fuzz.corpus import Corpus
     from wtf_tpu_torch.fuzz.loop import FuzzLoop
     from wtf_tpu_torch.fuzz.mutator import create_mutator
 
+    # checkpoint dir defaulting: explicit flag > the resume dir (a
+    # resumed campaign keeps checkpointing in place) > <target>/checkpoint
+    ckpt_dir = args.checkpoint_dir or args.resume
+    if ckpt_dir is None and args.checkpoint_every and args.target:
+        ckpt_dir = Path(args.target) / "checkpoint"
+    if args.checkpoint_every and ckpt_dir is None:
+        raise SystemExit("--checkpoint-every needs --checkpoint-dir "
+                         "(or --target to default one under)")
+    if args.resume and args.runs == 0:
+        raise SystemExit("--resume applies to fuzz campaigns "
+                         "(--runs > 0); minset replays are stateless")
     if args.runs <= 0:
         raise SystemExit("--runs must be > 0 (the minset mode of --runs 0 "
                          "is not carried by wtf_tpu_torch yet)")
@@ -247,8 +298,34 @@ def campaign(args):
         mutator = mutator_for(target, rng, args.max_len)
     loop = FuzzLoop(backend, target, mutator, corpus,
                     crashes_dir=paths.crashes, registry=registry,
+                    checkpoint_dir=ckpt_dir,
+                    checkpoint_every=args.checkpoint_every,
                     megachunk=args.megachunk)
-    loop.fuzz(runs=args.runs, print_stats=True)
+    if args.resume:
+        from wtf_tpu_torch.resume import load_campaign, restore_campaign
+
+        state, fell_back = load_campaign(args.resume)
+        batch = restore_campaign(loop, state, args.resume)
+        note = " (newest torn; resumed from .prev)" if fell_back else ""
+        print(f"resumed at batch {batch}: "
+              f"{loop.stats.testcases} testcases, "
+              f"{len(corpus)} corpus entries{note}")
+    return loop
+
+
+def campaign(args):
+    """`campaign`: build it (build_campaign) and run the fuzz loop until
+    --runs testcases.  Returns the FuzzLoop.  A device the supervisor
+    cannot rebuild in this process ends the campaign with the message to
+    resume from its last checkpoint."""
+    from wtf_tpu_torch.supervise import DeviceLost
+
+    loop = build_campaign(args)
+    try:
+        loop.fuzz(runs=args.runs, print_stats=True)
+    except DeviceLost as e:
+        raise SystemExit(f"campaign stopped at batch {loop.batches_done}: "
+                         f"{e}") from e
     return loop
 
 

@@ -12,7 +12,8 @@ checkout alone.  The constants the kernels share with the Python side
 written into `wtf_consts.h` from the Python modules before compiling, so
 the two cannot drift.  The library name carries a hash of the source
 and that header; a stale build is never loaded.  A failed build raises
-with nvcc's output.
+KernelError with nvcc's output; the wrappers raise KernelError when a
+launch fails and KernelArgumentError when they refuse their arguments.
 
 `build_all()` starts one nvcc per source at once and waits for all.
 """
@@ -37,6 +38,18 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 # nvcc's -Xptxas -v report per kernel source (registers, spills)
 PTXAS: Dict[str, str] = {}
 BUILD_SECONDS: Dict[str, float] = {}
+
+
+class KernelError(RuntimeError):
+    """A kernel of this package failed to build or to launch.  The
+    supervisor never replays one: the same call fails again, and a rung
+    of its ladder without the kernel would carry on without it."""
+
+
+class KernelArgumentError(KernelError, ValueError):
+    """A kernel's wrapper refused its arguments (the launch was never
+    made)."""
+
 
 # each library's C functions: every pointer (and the stream) as c_void_p,
 # ints as c_int
@@ -103,9 +116,9 @@ def nvcc_path() -> str:
                  "/usr/local/cuda/bin/nvcc"):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, "
-                       "/usr/local/cuda/bin): the CUDA kernels cannot be "
-                       "built here")
+    raise KernelError("nvcc not found (PATH, $CUDA_HOME/bin, "
+                      "/usr/local/cuda/bin): the CUDA kernels cannot be "
+                      "built here")
 
 
 def _target(name: str, header: str) -> Path:
@@ -156,7 +169,7 @@ def build_all(names=KERNELS) -> Dict[str, Path]:
             continue
         os.replace(tmp, target)
     if errors:
-        raise RuntimeError("\n".join(errors))
+        raise KernelError("\n".join(errors))
     return out
 
 

@@ -146,3 +146,67 @@ class DeviceCorpus:
             weight[slot] = wt
         return {"count": self._uploaded_count, "data": data,
                 "lens": lens, "weight": weight}
+
+    def checkpoint_state(self) -> dict:
+        """Both slab views a resumable campaign needs: `current` (the
+        host-authoritative slab with digests) and `uploaded` (what the
+        in-flight prelaunched batch sampled) — host numpy arrays of the
+        JAX package's dtypes, so both packages write the same payload."""
+        return {
+            "current": {
+                "count": self.count,
+                "data": self._data.copy(),
+                "lens": self._len.copy(),
+                "weight": self._weight.copy(),
+                "digests": [(slot, digest)
+                            for slot, digest in sorted(
+                                self._digest_of.items())],
+            },
+            "uploaded": self.uploaded_state(),
+        }
+
+    def restore(self, state: dict) -> None:
+        """Install a checkpoint_state(): host slab = `current`, device
+        tensors = `uploaded` (so the pending batch regenerates from the
+        exact slab it originally sampled), with the undo log rebuilt as
+        the diff between the two — a checkpoint taken before the next
+        upload still reconstructs `uploaded` faithfully."""
+        cur, up = state["current"], state["uploaded"]
+        shape = tuple(np.asarray(cur["data"]).shape)
+        if shape != (self.slots, self.words):
+            raise ValueError(
+                f"devmut slab shape mismatch: checkpoint {shape} vs "
+                f"configured ({self.slots}, {self.words}) — resume needs "
+                "the same slot count and max_len")
+        self._data = np.array(cur["data"], dtype=np.uint32)
+        self._len = np.array(cur["lens"], dtype=np.int32)
+        self._weight = np.array(cur["weight"], dtype=np.uint32)
+        self.count = int(cur["count"])
+        self._digest_of = {int(s): d for s, d in cur["digests"]}
+        self._slot_of = {d: s for s, d in self._digest_of.items()}
+        up_data = np.array(up["data"], dtype=np.uint32)
+        up_len = np.array(up["lens"], dtype=np.int32)
+        up_weight = np.array(up["weight"], dtype=np.uint32)
+        self._uploaded_count = int(up["count"])
+        cum = np.cumsum(up_weight, dtype=np.uint64).astype(
+            np.uint32).astype(np.int64)
+        self._dev = (
+            torch.tensor(up_data.view(np.int32), device=self.device),
+            torch.tensor(up_len, device=self.device),
+            torch.tensor(cum, device=self.device))
+        self._dirty = False
+        self._undo = {
+            slot: (up_data[slot].copy(), int(up_len[slot]),
+                   int(up_weight[slot]))
+            for slot in range(self.slots)
+            if (not np.array_equal(self._data[slot], up_data[slot])
+                or self._len[slot] != up_len[slot]
+                or self._weight[slot] != up_weight[slot])}
+
+    def mark_stale(self) -> None:
+        """Force the next arrays() call to upload the host slab.  The
+        restoring mutator calls this AFTER regenerating its pending batch
+        from the restored as-uploaded view — marking stale earlier would
+        make the regeneration upload the current slab and sample the
+        wrong corpus (see DevMangleMutator.restore_state)."""
+        self._dirty = True

@@ -18,7 +18,9 @@ Determinism: the whole stream is a pure function of (campaign seed,
 batch index, lane) via hostref.lane_seeds, and slab evolution is
 host-ordered — a seeded `--mutator devmangle` campaign replays exactly,
 and equals the JAX package's at the same seed.  `checkpoint_state` /
-`restore_state` wait for the port of wtf_tpu/resume.
+`restore_state` carry the stream across a campaign checkpoint
+(wtf_tpu_torch/resume) and a supervisor's rebuild (wtf_tpu_torch/
+supervise).
 """
 
 from __future__ import annotations
@@ -113,8 +115,14 @@ class DevMangleMutator(Mutator):
         seeds = seeds_from_pairs(
             hostref.lane_seeds(self.seed, self._batch, self.n_lanes),
             self.runner.device)
-        out = self.runner.devmut_generate(self.rounds, data, lens, cumw,
-                                          seeds)
+        # through the runner's supervisor, waited on (the JAX package
+        # leaves its prelaunch unwaited, for the overlap with the
+        # harvest): the harvest's fetch right after a prelaunch reads the
+        # device anyway, so the wait costs nothing here, and without it a
+        # hang would block that read, outside every seam
+        out = self.runner.supervisor.dispatch(
+            "devmut-generate", self.runner.devmut_generate, self.rounds,
+            data, lens, cumw, seeds, sync=lambda o: o[1])
         self._batch += 1
         self.stats["batches"] += 1
         self.stats["generated"] += self.n_lanes
@@ -220,6 +228,70 @@ class DevMangleMutator(Mutator):
                for j, lane in enumerate(lane_list)}
         self.stats["fetched"] += len(lane_list)
         return out
+
+    # -- checkpoint/resume (wtf_tpu_torch/resume) --------------------------
+    def checkpoint_state(self) -> dict:
+        """Everything a bit-identical resume of the device stream needs:
+        the engine seed (drawn once from the campaign RNG at create time
+        — the restored run must NOT redraw), the batch cursor, whether a
+        prelaunched batch is in flight, and both slab views
+        (DeviceCorpus.checkpoint_state).  The byte stream is a pure
+        function of (seed, batch, lane, slab as uploaded), so this is
+        sufficient: the restore regenerates the pending batch instead of
+        persisting its bytes."""
+        if self.corpus is None:
+            raise RuntimeError("devmangle checkpoint before bind()")
+        return {
+            "seed": self.seed,
+            "batch": self._batch,
+            "pending": self._pending is not None,
+            "slab": self.corpus.checkpoint_state(),
+        }
+
+    def restore_state(self, state: dict,
+                      regenerate: Optional[bool] = None) -> None:
+        """Install a checkpoint into a freshly-bound mutator (bind() and
+        seed_from() already ran; their slab is discarded wholesale).  Any
+        batch in flight is dropped.  Regenerates the prelaunched batch
+        from the slab view the original run uploaded, then marks the
+        slab stale so the next prelaunch uploads the current
+        (post-harvest) view — exactly the upload the uninterrupted run
+        would have paid.
+
+        `regenerate` defaults to the checkpoint's own pending flag.  The
+        supervisor's recovery passes True: a megachunk-boundary snapshot
+        carries pending=False, but when the replay runs batch at a time
+        (the ladder stepped below megachunk) the NEXT batch is still
+        entitled to the as-uploaded slab view — without regeneration,
+        take_batch's inline generation would upload the newer host slab
+        (mark_stale below) and break the one-batch lag."""
+        if self.corpus is None:
+            raise RuntimeError("devmangle restore before bind()")
+        self.seed = int(state["seed"]) & ((1 << 64) - 1)
+        self.corpus.restore(state["slab"])
+        self._current = None
+        self._pending = None
+        had_pending = bool(state.get("pending"))
+        if had_pending if regenerate is None else regenerate:
+            # _dispatch consumes the restored as-uploaded view; the cursor
+            # of a pending=True checkpoint already counted the prelaunched
+            # batch, a window-boundary one did not
+            self._batch = int(state["batch"]) - (1 if had_pending else 0)
+            if int(state["batch"]) == 0:
+                # the snapshot predates the FIRST slab upload (no batch
+                # generated yet): there is no as-uploaded view to honor —
+                # the entitled view is a fresh sync of the current slab,
+                # exactly the upload the inline take_batch generation
+                # would have paid.  (The JAX package tests the uploaded
+                # view's count instead, which is also 0 when a campaign
+                # began with an empty corpus and uploaded it; it then
+                # regenerates from a newer slab than the original run
+                # sampled — ROADMAP C.)
+                self.corpus.mark_stale()
+            self._pending = self._dispatch()
+        else:
+            self._batch = int(state["batch"])
+        self.corpus.mark_stale()
 
     # -- Mutator contract --------------------------------------------------
     def on_new_coverage(self, testcase: bytes) -> None:

@@ -2,9 +2,12 @@
 
 Copied from wtf_tpu/fuzz/loop.py and cut to the paths the port carries:
 the host-mutation batch, the device-mutation batch (wtf_tpu_torch/devmut)
-and the megachunk window (wtf_tpu_torch/fuzz/megachunk.py).  Supervision,
-checkpoint/resume, the fleet store, resharding, the minset mode and the
---xprof-dir profiler window are not part of it.
+and the megachunk window (wtf_tpu_torch/fuzz/megachunk.py), with
+supervision (wtf_tpu_torch/supervise: every batch under the snapshot ->
+dispatch -> recover-and-replay wrapper) and crash-safe checkpoints
+(wtf_tpu_torch/resume: `checkpoint_every` batches into `checkpoint_dir`).
+The fleet store, resharding, the minset mode and the --xprof-dir
+profiler window are not part of it.
 
 This is the single-process campaign loop — the reference needs a master
 process + N client processes even on one machine (README.md:34-110); here
@@ -149,6 +152,8 @@ class FuzzLoop:
         stats_every: float = 10.0,
         registry: Optional[Registry] = None,
         events=None,
+        checkpoint_dir: Optional[Path] = None,
+        checkpoint_every: int = 0,
         megachunk: int = 0,
     ):
         self.backend = backend
@@ -202,6 +207,25 @@ class FuzzLoop:
         self._requeue: list = []
         self._requeue_digests = set()
         self.batches_done = 0
+        # crash-safe checkpointing (wtf_tpu_torch/resume): every
+        # `checkpoint_every` batches the minimal resumable state lands in
+        # `checkpoint_dir` atomically; a kill at any point costs at most
+        # one checkpoint interval, and --resume replays bit-identically
+        self.checkpoint_dir = Path(checkpoint_dir) if checkpoint_dir else None
+        self.checkpoint_every = checkpoint_every
+        # self-healing device runtime (wtf_tpu_torch/supervise): when the
+        # backend's supervisor is armed, every batch runs under the
+        # snapshot -> dispatch -> (recover + replay)* -> post_batch
+        # wrapper in run_one_batch; the ladder attaches lazily at the
+        # first batch (the backend may not be initialized yet here)
+        self.supervisor = getattr(backend, "supervisor", None)
+        if self.checkpoint_every and not hasattr(backend, "coverage_state"):
+            # fail at construction, not at the first cadence hit deep
+            # into a campaign (the checkpoint needs the batched backend's
+            # device state seams)
+            raise ValueError(
+                "checkpointing requires the batched GpuBackend; this "
+                "backend has no coverage_state seam")
 
     def _account(self, data: bytes, result: TestcaseResult,
                  requeue: bool = False, lane: Optional[int] = None) -> int:
@@ -250,12 +274,51 @@ class FuzzLoop:
             self.target.restore()
             self.backend.restore()
 
+    def _supervised(self):
+        """The armed supervisor, ladder attached — or None (the common,
+        unsupervised case)."""
+        sup = self.supervisor
+        if sup is None or not sup.enabled:
+            return None
+        if sup.ladder is None:
+            sup.attach_loop(self)
+        return sup
+
     def run_one_batch(self) -> int:
         """Mutate, execute and harvest one batch; returns its crashes (for
         a megachunk window: the whole window's, and the window's extra
-        completed batches advance `batches_done` here)."""
+        completed batches advance `batches_done` here).
+
+        Under supervision (wtf_tpu_torch/supervise) the batch body runs
+        inside the recovery wrapper: a DispatchFailure (hang, device
+        error, poisoned lane) rebuilds the device plane from the
+        batch-boundary snapshot and REPLAYS the batch — bit-identical,
+        because the failed attempt consumed no host randomness and its
+        decode work is a prefix of the same deterministic stream."""
+        sup = self._supervised()
+        if sup is None:
+            return self._dispatch_batch()
+        from wtf_tpu_torch.supervise import DispatchFailure
+
+        sup.pre_batch(self)
+        attempts = 0
+        while True:
+            try:
+                crashes = self._dispatch_batch()
+            except DispatchFailure as failure:
+                attempts += 1
+                if attempts > sup.max_batch_retries:
+                    raise
+                sup.recover(self, failure)
+                continue
+            sup.post_batch(self)
+            return crashes
+
+    def _dispatch_batch(self) -> int:
         if self.mutate_on_device:
-            if self.megachunk:
+            sup = self.supervisor
+            if self.megachunk and not (
+                    sup is not None and sup.megachunk_disabled):
                 return self._run_megachunk_window()
             return self._run_one_batch_device()
         spans = self.registry.spans
@@ -321,12 +384,17 @@ class FuzzLoop:
         """One megachunk window: up to `self.megachunk` whole batches in
         one backend call (restore/mutate/insert/execute/merge on the
         device), then a host harvest of just the batches' finds.  The
-        window is capped by the runs budget."""
+        window is capped so batch boundaries still line up with the
+        checkpoint cadence and the runs budget — a `--resume` from any
+        such boundary stays bit-identical."""
         spans = self.registry.spans
         # a batch prelaunched by the batch-at-a-time path is dropped and
         # the cursor rewound, so the window regenerates that stream index
         self.mutator.cancel_pending()
         window = self.megachunk
+        if self.checkpoint_every:
+            window = min(window, self.checkpoint_every
+                         - self.batches_done % self.checkpoint_every)
         if self._runs_budget:
             remaining = self._runs_budget - self.stats.testcases
             window = min(window, max(1, -(-int(remaining)
@@ -412,15 +480,20 @@ class FuzzLoop:
         heartbeat carrying the full registry dump (per-phase span totals
         included) + an atomic status.json refresh next to the event log
         (what `wtf-tpu status` tails on a live local campaign).  Window
-        campaigns add the steady-state fields, and ` zh: N%` to the line."""
+        campaigns add the steady-state fields, and ` zh: N%` to the line;
+        supervised campaigns the supervisor's rung and quarantine size."""
+        fields = (self.supervisor.heartbeat_fields()
+                  if self.supervisor is not None
+                  and self.supervisor.enabled else {})
         steady = self.steady_state_fields()
+        fields.update(steady)
         suffix = (f" zh: {steady['zero_host_window_rate']:.0%}"
                   if "zero_host_window_rate" in steady else "")
         line = self.stats.maybe_heartbeat(
             self.events, self.registry,
             lambda: self.stats.line(len(self.corpus), self._coverage())
             + suffix,
-            every=self.stats_every, print_stats=print_stats, **steady)
+            every=self.stats_every, print_stats=print_stats, **fields)
         if line is not None:
             self._write_status(line)
 
@@ -452,10 +525,43 @@ class FuzzLoop:
         while runs == 0 or self.stats.testcases < runs:
             found = self.run_one_batch()
             self.batches_done += 1
+            self._maybe_checkpoint()
             self._heartbeat(print_stats)
             if stop_on_crash and found:
                 break
         return self.stats
+
+    def _maybe_checkpoint(self) -> None:
+        """--checkpoint-every cadence: persist the resumable state at the
+        batch boundary (wtf_tpu_torch/resume).  Best-effort like every
+        other persistence side channel — a full disk degrades
+        checkpointing with a warning + error event, it never aborts the
+        campaign."""
+        if not (self.checkpoint_dir and self.checkpoint_every):
+            return
+        if self.batches_done % self.checkpoint_every:
+            return
+        from wtf_tpu_torch.resume import save_campaign
+
+        spans = self.registry.spans
+        before = spans.seconds("checkpoint")
+        try:
+            with spans.span("checkpoint"):
+                info = save_campaign(self, self.checkpoint_dir)
+        except OSError as e:
+            import logging
+
+            logging.getLogger(__name__).warning(
+                "checkpoint write failed at batch %d: %s",
+                self.batches_done, e)
+            self.events.emit("error", kind="checkpoint-write",
+                             batch=self.batches_done, detail=str(e))
+            return
+        self.registry.counter("campaign.checkpoints").inc()
+        self.events.emit("checkpoint", batch=self.batches_done,
+                         bytes=info["bytes"], path=info["path"],
+                         seconds=round(spans.seconds("checkpoint")
+                                       - before, 4))
 
     def _coverage(self) -> int:
         """Bits set in the aggregate coverage bitmap."""

@@ -132,6 +132,9 @@ class MegaOut:
     count: int
     dd_stats: Tuple[int, int, int, int]
     service_k1: int
+    # the machine the window ran on, in place (what scripted poison
+    # corrupts, as on the JAX window's output)
+    machine: object = None
 
 
 def quiesce_fused(tab, image, m, limit: int, fused_k: int,
@@ -295,7 +298,7 @@ def window(tab, image, machine, template, slab_first: Tuple,
                    new_flags=flags, ctr_sums=ctr_sums, new_words=new_words,
                    prev=prev, cur=cur, engine_rounds=(sweeps, launches),
                    tab=tab, count=count, dd_stats=dd_stats,
-                   service_k1=service_k1)
+                   service_k1=service_k1, machine=m)
 
 
 def make_megachunk(max_batches: int, len_gpr: int, ptr_gpr: int,

@@ -32,6 +32,7 @@ import ctypes
 import torch
 
 from wtf_tpu_torch.core.results import StatusCode
+from wtf_tpu_torch.csrc.build import KernelArgumentError, KernelError
 from wtf_tpu_torch.cpu import uops as U
 from wtf_tpu_torch.interp import ints as I
 from wtf_tpu_torch.interp import step as S
@@ -78,8 +79,8 @@ def probe_kernel(x: torch.Tensor) -> torch.Tensor:
         return x + 1
     if x.dtype != torch.int32 or x.numel() != 1 or not x.is_contiguous() \
             or x.device.type != "cuda":
-        raise ValueError("probe_kernel takes one contiguous int32 element "
-                         "on a CUDA device")
+        raise KernelArgumentError("probe_kernel takes one contiguous int32 "
+                                  "element on a CUDA device")
     from wtf_tpu_torch.csrc.build import library
 
     lib = library("probe")
@@ -90,7 +91,7 @@ def probe_kernel(x: torch.Tensor) -> torch.Tensor:
                             x.device).cuda_stream))
     LAUNCHES["probe"] += 1
     if err:
-        raise RuntimeError(f"probe kernel launch failed: cuda error {err}")
+        raise KernelError(f"probe kernel launch failed: cuda error {err}")
     return out
 
 
@@ -123,12 +124,12 @@ def launch_geometry(n_lanes: int, slots: int) -> tuple:
     shared memory each warp's copy of its lane's row index, padded to
     whole rounds of 32 rows (the lookup masks the rows past `slots`)."""
     if n_lanes < 0 or slots < 1:
-        raise ValueError(f"fused_step: {n_lanes} lanes of {slots} overlay "
-                         f"rows")
+        raise KernelArgumentError(f"fused_step: {n_lanes} lanes of {slots} "
+                                  f"overlay rows")
     rounds = -(-slots // WARP)
     shared = WARPS * rounds * WARP * 4
     if shared > MAX_SHARED:
-        raise ValueError(
+        raise KernelArgumentError(
             f"fused_step: {slots} overlay rows need {shared} bytes of "
             f"shared memory per block, over the card's {MAX_SHARED}")
     return -(-n_lanes // WARPS), WARPS * WARP, shared
@@ -145,8 +146,8 @@ def occupancy(n_lanes: int, slots: int) -> int:
     err = library("fused_step").wtf_fused_occupancy(block, shared,
                                                     ctypes.byref(blocks))
     if err:
-        raise RuntimeError(f"fused_step occupancy query failed: cuda error "
-                           f"{err}")
+        raise KernelError(f"fused_step occupancy query failed: cuda error "
+                          f"{err}")
     return blocks.value * block // WARP
 
 
@@ -161,20 +162,21 @@ def fused_step(tab: UopTable, image: MemImage, m: Machine, limit: int,
                     ("frame_table", image.frame_table),
                     ("tenant", image.tenant)):
         if t.device != m.device:
-            raise ValueError(f"fused_step: {name} is on {t.device}, the "
-                             f"machine on {m.device}")
+            raise KernelArgumentError(f"fused_step: {name} is on "
+                                      f"{t.device}, the machine on "
+                                      f"{m.device}")
     if m.device.type == "cuda":
         _launch(tab, image, m, limit, k_steps)
     elif m.device.type == "cpu":
         fused_step_plain(tab, image, m, limit, k_steps)
     else:
-        raise ValueError(f"no fused step for device {m.device}")
+        raise KernelArgumentError(f"no fused step for device {m.device}")
 
 
 def _check(name, t, dtype, shape, device):
     if t.dtype != dtype or tuple(t.shape) != tuple(shape) \
             or not t.is_contiguous() or t.device != device:
-        raise ValueError(
+        raise KernelArgumentError(
             f"fused_step: {name} must be a contiguous {dtype} tensor of "
             f"shape {tuple(shape)} on {device}, got {t.dtype} "
             f"{tuple(t.shape)} on {t.device} "
@@ -218,12 +220,12 @@ def _launch(tab: UopTable, image: MemImage, m: Machine, limit: int,
     ebits = m.edge.shape[1] * 32
     if ebits & (ebits - 1) or tab.hash_tab.shape[0] & (
             tab.hash_tab.shape[0] - 1):
-        raise ValueError("edge bitmap and hash table sizes must be "
-                         "powers of two")
+        raise KernelArgumentError("edge bitmap and hash table sizes must "
+                                  "be powers of two")
     if ov.valid.data_ptr() % 16:
-        raise ValueError("fused_step: overlay.valid must be 16-byte "
-                         "aligned (a claimed row is cleared in 16-byte "
-                         "stores)")
+        raise KernelArgumentError("fused_step: overlay.valid must be "
+                                  "16-byte aligned (a claimed row is "
+                                  "cleared in 16-byte stores)")
     grid, block, shared = launch_geometry(n, slots)
     lib = library("fused_step")
     p = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
@@ -240,8 +242,8 @@ def _launch(tab: UopTable, image: MemImage, m: Machine, limit: int,
         shared, ctypes.c_void_p(stream.cuda_stream))
     LAUNCHES["fused_step"] += 1
     if err:
-        raise RuntimeError(f"fused_step kernel launch failed: cuda error "
-                           f"{err}")
+        raise KernelError(f"fused_step kernel launch failed: cuda error "
+                          f"{err}")
 
 
 def _win16(image: MemImage, ov, pfn_a, pfn_b, off):

@@ -24,8 +24,11 @@ megachunk window (wtf_tpu_torch/fuzz/megachunk.py) is reached through
 `megachunk_callable`.  With `device_decode` the window services decode
 misses on the device (interp/devdec.py) and the host service fetches the
 missing lanes' code windows in one device pass (`_gather_code_windows`).
-The supervisor and tenancy of the JAX runner are not part of the port
-yet.
+Every device dispatch of the runner — the precise chunk, K1 and its
+resume leg, the insert and the code-window gather — goes through the
+backend's supervisor (wtf_tpu_torch/supervise), which is inert unless
+supervision or a scripted fault is armed.  The tenancy of the JAX
+runner is not part of the port yet.
 """
 
 from __future__ import annotations
@@ -56,6 +59,7 @@ from wtf_tpu_torch.interp.step import run_steps
 from wtf_tpu_torch.interp.uoptable import DecodeCache
 from wtf_tpu_torch.mem.physmem import lane_image
 from wtf_tpu_torch.snapshot.loader import Snapshot
+from wtf_tpu_torch.supervise import Supervisor
 from wtf_tpu_torch.telemetry import NULL, Registry, StatsDict
 
 MASK64 = (1 << 64) - 1
@@ -102,6 +106,11 @@ def _pull(m: Machine, names) -> Dict[str, np.ndarray]:
         out[n] = arr
         pos += k
     return out
+
+
+def _status(m: Machine) -> torch.Tensor:
+    """What a supervised machine seam's watchdog waits on."""
+    return m.status
 
 
 def _push(m: Machine, host: Dict[str, np.ndarray], names, dtype) -> None:
@@ -518,9 +527,17 @@ class Runner:
         burst_any_tier: Optional[bool] = None,
         device="cuda",
         device_decode: bool = False,
+        supervisor: Optional[Supervisor] = None,
     ):
         self.registry = registry if registry is not None else Registry()
         self.events = events if events is not None else NULL
+        # Every device dispatch seam routes through the supervisor
+        # (wtf_tpu_torch/supervise): inert by default, armed by the
+        # backend for watchdog/recovery/chaos.  A rebuilt Runner SHARES
+        # its backend's supervisor, so dispatch indices and telemetry
+        # survive recovery.
+        self.supervisor = supervisor if supervisor is not None \
+            else Supervisor(registry=self.registry, events=self.events)
         self.device = resolve_device(device) if isinstance(device, str) \
             else device
         self.snapshot = snapshot
@@ -590,6 +607,7 @@ class Runner:
             gauges=("max_chunk_steps",),
             labeled=("fallbacks_by_opclass",))
         self.stats["max_chunk_steps"] = chunk_steps
+        self.supervisor.attach_runner(self)
 
     # single-image batches: every lane is tenant 0
     def tenant_of(self, lane: int) -> int:
@@ -603,6 +621,32 @@ class Runner:
 
     def view(self) -> HostView:
         return HostView(self)
+
+    # -- checkpoint/resume (wtf_tpu_torch/resume) --------------------------
+    def checkpoint_state(self) -> dict:
+        """The runner state a campaign checkpoint must carry: the decode
+        cache in insertion order (coverage-bitmap bit i is cache entry i,
+        so restored aggregate bitmaps are meaningless without identical
+        indices) plus the SMC thrash counters that gate the per-rip
+        fallback cutover.  Machine state needs nothing — checkpoints are
+        taken at batch boundaries, where the machine is freshly
+        restored to the snapshot."""
+        return {
+            "cache": self.cache.checkpoint_entries(),
+            # (tenant, rip) keys flatten to JSON-able triples
+            "smc_updates": [[t, r, n]
+                            for (t, r), n in self._smc_updates.items()],
+        }
+
+    def restore_state(self, state: dict) -> None:
+        """Restore checkpoint_state() output into a freshly-initialized
+        runner (empty decode cache; breakpoints from target.init may
+        already be pending — add() re-arms them).  The device table is
+        uploaded again from the restored host arrays at the next
+        `device_tab()`."""
+        self.cache.restore_entries(state.get("cache", []))
+        self._smc_updates = {(int(t), int(r)): int(n)
+                             for t, r, n in state.get("smc_updates", [])}
 
     # -- mutate-on-device seams (wtf_tpu_torch/devmut) ---------------------
     def device_insert(self, words, lens, pfns, gva: int, len_gpr: int,
@@ -618,10 +662,15 @@ class Runner:
                 f"device-insert region spans {n_pages} pages but lanes "
                 f"have only {self.machine.overlay.capacity} overlay slots "
                 f"— raise overlay_slots or shrink the mutator/spec max_len")
-        device_insert_impl(
-            self.machine, words, lens,
+        self.supervisor.dispatch(
+            "device-insert", self._insert, words, lens,
             torch.tensor(pfns, dtype=torch.int32, device=self.device),
-            gva, len_gpr, ptr_gpr)
+            gva, len_gpr, ptr_gpr, sync=_status)
+
+    def _insert(self, words, lens, pfns, gva, len_gpr, ptr_gpr) -> Machine:
+        device_insert_impl(self.machine, words, lens, pfns, gva, len_gpr,
+                           ptr_gpr)
+        return self.machine
 
     def devmut_generate(self, rounds: int, data, lens, cumw, seeds):
         """One devmut batch generation on this runner's device (the seam
@@ -828,9 +877,11 @@ class Runner:
             return {}
         m = self.machine
         rips = torch.from_numpy(view.r["rip"].view(np.int64)).to(self.device)
-        out = devdec.gather_windows(
-            self.image, m.overlay, m.cr3, rips,
-            torch.tensor(want, dtype=torch.int64, device=self.device))
+        out = self.supervisor.dispatch(
+            "device-decode", devdec.gather_windows, self.image, m.overlay,
+            m.cr3, rips,
+            torch.tensor(want, dtype=torch.int64, device=self.device),
+            sync=lambda o: o[1])
         wins, faults, pfn0s, pfn14s = (x.cpu().numpy() for x in out)
         self.stats["decode_windows_gathered"] += len(want)
         return {lane: (wins[j].tobytes(), bool(faults[j]), int(pfn0s[j]),
@@ -1021,17 +1072,32 @@ class Runner:
         to fused_k hot steps) -> (the precise resume leg for the lanes it
         parked).  Stops early once no lane is RUNNING."""
         m = self.machine
+        sup = self.supervisor
         for _ in range(max(self.fused_rounds, 1)):
             with spans.span("fused-step") as sp:
-                pstep.fused_step(tab, self.image, m, self.limit,
-                                 self.fused_k)
+                sup.dispatch("fused", self._k1, tab, steps=self.fused_k,
+                             sync=_status)
                 sp.fence(m.status)
             with spans.span("device-step") as sp:
-                pstep.fused_resume(tab, self.image, m, self.limit,
-                                   self.fused_resume_steps)
+                sup.dispatch("fused-resume", self._resume_leg, tab,
+                             steps=self.fused_resume_steps, sync=_status)
                 sp.fence(m.status)
             if not bool((m.status == int(StatusCode.RUNNING)).any()):
                 break
+
+    def _k1(self, tab) -> Machine:
+        pstep.fused_step(tab, self.image, self.machine, self.limit,
+                         self.fused_k)
+        return self.machine
+
+    def _resume_leg(self, tab) -> Machine:
+        pstep.fused_resume(tab, self.image, self.machine, self.limit,
+                           self.fused_resume_steps)
+        return self.machine
+
+    def _chunk(self, tab, size: int) -> Machine:
+        run_steps(tab, self.image, self.machine, self.limit, size)
+        return self.machine
 
     # -- run loop ----------------------------------------------------------
     def run(self, bp_handler: Optional[Callable[["Runner", HostView, int],
@@ -1054,8 +1120,8 @@ class Runner:
                 self.stats["max_chunk_steps"] = max(
                     self.stats["max_chunk_steps"], size)
                 with spans.span("device-step") as sp:
-                    run_steps(tab, self.image, self.machine, self.limit,
-                              size)
+                    self.supervisor.dispatch("chunk", self._chunk, tab,
+                                             size, steps=size, sync=_status)
                     sp.fence(self.machine.status)
             self.stats["chunks"] += 1
             status = self.machine.status.cpu().numpy()

@@ -230,6 +230,24 @@ class DecodeCache:
             out.append(entry if tenant == 0 else entry + (tenant,))
         return out
 
+    def restore_entries(self, entries) -> None:
+        """Rebuild from checkpoint_entries() output (4-tuples, or
+        5-tuples carrying a tenant tag).  Requires an empty cache —
+        replaying into a partially-filled one would shift every entry
+        index and silently scramble restored coverage bitmaps.  The
+        device copy is rebuilt from the host arrays at the next
+        `device()` call."""
+        if self.count:
+            raise RuntimeError(
+                "decode-cache restore needs an empty cache "
+                f"(has {self.count} entries)")
+        from wtf_tpu_torch.cpu.decoder import decode
+
+        for entry in entries:
+            rip, raw, pfn0, pfn1 = entry[:4]
+            tenant = int(entry[4]) if len(entry) > 4 else 0
+            self.add(rip, decode(raw, rip), pfn0, pfn1, tenant=tenant)
+
     # -- device-published entry adoption (interp/devdec.py harvest) ------
     def adopt_device_entries(self, rip, meta_i32, meta_u64,
                              start: int, end: int) -> int:
