@@ -102,7 +102,7 @@ Phases (each prints one line; any failure exits non-zero):
      demo_spin on the card and on the CPU: equal results
  18. demo_spin deep, bench.py's chip workload (1024 lanes, max_len 4, the
      native engine behind bench's spin-count cap, --fused-k 32) at limit
-     1,000,000: a warm-up batch with K1 rounds 8,000-10,000 traced by
+     500,000: a warm-up batch with K1 rounds 8,000-8,500 traced by
      torch.profiler, then unprofiled batches for 30 s; execs/s,
      instructions/s, timeout fraction, K1 launches per batch and per
      second, K1's and the resume legs' shares of the wall, the host
@@ -153,13 +153,35 @@ Phases (each prints one line; any failure exits non-zero):
      (phases 21-23 also run at 64 lanes on the card and, in a worker
      process, on the CPU: equal, and equal to phase 11 but for the
      quarantine run)
+ 24. triage, the minset: `campaign --runs 0 --fused-step on --lanes
+     4096 --limit 20000` over phase 21's outputs/ and crashes/ copied
+     into a fresh inputs/, through the CLI with --telemetry-dir (K1's
+     counts zeroed just before each triage command and read just after):
+     K1 launched, outputs/ ends as the kept subset, every lane terminal;
+     kept against the corpus, dispatches, K1 launches, the wall
+ 25. `triage distill` of the same inputs (full coverage, no more kept than
+     phase 24's prefix minset, which it also prints; the host set cover's
+     seconds) and `triage minimize` of phase 21's largest crasher (no
+     longer than it, the same crash bucket when both are replayed):
+     rounds, dispatches, candidates per dispatch, lanes filled, K1
+     launches, the wall
+ 26. `triage vbreak --break-at tlv!parse+0x12 --hit 2 --variants 4095` on
+     phase 25's result (triage_smoke's crasher if that never reaches the
+     second arrival): captures > 0, each at icount > 0; the wall and the
+     share of it in the host breakpoint services (handlers, view pulls
+     and pushes)
+     (phases 24-26 also run at 64 lanes on the card and, in two worker
+     processes, on the CPU, on the 96 largest files and triage_smoke's
+     crasher: equal printed lines, kept digests, minimized bytes and
+     captures)
 
 Phase 8 fails unless its host mutator is the native engine (the one the
 reference CLI picks).  Every phase always runs, at the sizes above.
-Phases 6, 9, 11, 14 and 17 and the comparisons of phases 20-23 run
+Phases 6, 9, 11, 14 and 17 and the comparisons of phases 20-26 run
 last, after the timed phases: their CPU sides run in worker processes started
 together (spawned, and joined before the script ends) while this process
-runs their card sides.  The card's nvidia-smi line
+runs their card sides.  The line before the kernels' JSON record gives
+the seconds the phases took; the card's nvidia-smi line
 comes before the last, the kernels' JSON record before that; the last
 line is {"ok": true, "device": {...}}.  Without a CUDA device, or without the rest
 of the repository beside it, the script exits non-zero before printing
@@ -245,6 +267,17 @@ DCAMPAIGN = WCAMPAIGN + ["--device-decode"]
 SUPERVISE = ["--supervise", "--dispatch-timeout", "30"]
 SCAMPAIGN = WCAMPAIGN + SUPERVISE + ["--checkpoint-every", "1"]
 QUARANTINE_LANE = 9
+# phases 24-26: triage of phase 21's corpus; the vbreak drive of the
+# reference's verify recipe (the loop head `cmp r8, r9`, second arrival)
+VBREAK_AT = ["--break-at", "tlv!parse+0x12", "--hit", "2"]
+TWIN_LANES = 64                 # the 64-lane twins, card == cpu
+TWIN_CORPUS = 96                # the twins' corpus: the largest files
+# wtf_tpu/testing/triage_smoke.py's crasher (junk records around a type-3
+# stack smash) and its known-minimal reproducer: the twins' minimize
+# input, and phase 26's if phase 25's never reaches the second hit
+SMOKE_CRASHER = (b"\x01\x02XY" + bytes([3, 32]) + bytes(range(65, 89))
+                 + b"\x41" * 8 + b"\x01\x03ZZZ")
+SMOKE_MINIMAL = bytes([3, 32]) + bytes(24) + b"\x41" * 8
 
 KCAMPAIGN = ["campaign", "--name", "demo_kernel", "--fused-step", "on",
              "--lanes", str(LANES), "--runs", str(RUNS), "--limit",
@@ -261,9 +294,9 @@ TARGET_SEEDS = {"demo_maze": [b"aaaa"],
                 "demo_fs": [b"HELLOWORLD123456"]}
 # phase 18: bench.py's deep workload, its limit cut from 10M
 SPIN_LANES = 1024
-SPIN_LIMIT = 1_000_000
+SPIN_LIMIT = 500_000
 SPIN_SECONDS = 30.0
-SPIN_WINDOW = (8_000, 10_000)          # K1 rounds traced for the host share
+SPIN_WINDOW = (8_000, 8_500)           # K1 rounds traced for the host share
 SPIN_SMALL_LIMIT = 500                 # phase 17's 64-lane demo_spin
 TERMINAL = {"OK", "CRASH", "TIMEDOUT", "PAGE_FAULT", "OVERLAY_FULL",
             "CR3_CHANGE", "DIVIDE_ERROR", "HARD_ERROR"}
@@ -1102,12 +1135,15 @@ def profiled_rerun(phase: str, argv: list, rec: dict, k1_launches: int,
     from torch.profiler import ProfilerActivity, profile
 
     from wtf_tpu_torch import cli
+    from wtf_tpu_torch.interp import pstep
 
+    launched = pstep.LAUNCHES["fused_step"]
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         loop = cli.campaign(cli.build_parser().parse_args(argv))
         torch.cuda.synchronize()
     wall_prof = time.perf_counter() - t0
+    launched = pstep.LAUNCHES["fused_step"] - launched
     check(loop.stats.testcases == rec["testcases"],
           "the profiled campaign ran a different number of testcases")
     busy, per_kernel = device_busy(prof)
@@ -1117,7 +1153,9 @@ def profiled_rerun(phase: str, argv: list, rec: dict, k1_launches: int,
                   for i in (0, 1))
     check(k1_n == k1_launches,
           f"the trace holds {k1_n} K1 launches, the campaign made "
-          f"{k1_launches}")
+          f"{k1_launches} ({launched} in the profiled rerun itself, "
+          f"{sum(n for n, _ in per_kernel.values())} device records in "
+          f"the trace)")
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])
     n_dev = sum(n for n, _ in per_kernel.values())
     print(f"{phase}: profiled rerun ({wall_prof:.2f} s wall): card busy "
@@ -2521,11 +2559,14 @@ def timed_campaign(argv: list) -> tuple:
 
 
 def phase_supervised(k1: dict, k2: dict, record: dict,
-                     window_out: tuple) -> tuple:
+                     window_out: tuple, keep: Path) -> tuple:
     """Phase 21: phase 10's window campaign supervised, with a watchdog
     and a checkpoint after every batch: equal to phase 10's; then its
-    cost in parts, in turns.  Returns (final line, outputs/ digests) for
-    phase 23."""
+    cost in parts, in turns.  Its outputs/ and crashes/ are copied into
+    `keep` (the corpus phases 24-26 triage).  Returns (final line,
+    outputs/ digests) for phase 23."""
+    import shutil
+
     import torch
 
     from wtf_tpu_torch import cli
@@ -2549,6 +2590,8 @@ def phase_supervised(k1: dict, k2: dict, record: dict,
         wall = time.perf_counter() - t0
         launches = dict(pstep.LAUNCHES)
         tree = tree_digests(target)
+        for sub in ("outputs", "crashes"):
+            shutil.copytree(target / sub, keep / sub)
         ckpt = target / "checkpoint" / "checkpoint.json"
         ckpt_bytes = ckpt.stat().st_size
         blob_bytes = sum(p.stat().st_size for p in
@@ -2840,9 +2883,369 @@ def phase_tier_card_vs_cpu(cpu, card_window: tuple) -> None:
           f"first three == phase 11 ({card_s:.1f} s on the card)")
 
 
-def start_cpu_references(pool) -> dict:
-    """The CPU sides of phases 6, 9, 11, 14, 17 and 20, started together
-    in worker processes once the card's timed phases are done."""
+# ---------------------------------------------------------------------------
+# phases 24-26: batched triage of phase 21's corpus at the main path's width
+# ---------------------------------------------------------------------------
+
+def triage_corpus(keep: Path, root: Path, n=None) -> Path:
+    """A target dir whose inputs/ holds every file of phase 21's outputs/
+    and crashes/ (the `n` largest, ties by name, when `n` is given; a
+    find that also crashed is in both, and the minset's walk keeps one of
+    each content); returns it."""
+    import shutil
+
+    inputs = root / "inputs"
+    inputs.mkdir(parents=True)
+    files = sorted((p for d in ("outputs", "crashes")
+                    for p in (keep / d).iterdir()),
+                   key=lambda p: (-p.stat().st_size, p.name))
+    for path in files[:n]:
+        shutil.copy(path, inputs / path.name)
+    return root
+
+
+def triage_run(cmd: str, source: Path, lanes: int, device: str,
+               work: Path) -> dict:
+    """One triage command through the port's CLI (`cli.main`, with
+    --telemetry-dir), at `lanes` lanes on `device` with the main path's
+    engine and limit: `minset` (`campaign --runs 0`) and `distill` of the
+    target dir `source`, `minimize` and `vbreak` (lanes - 1 variants) of
+    the testcase file `source`.  Returns its rc, printed lines (without
+    the clock, the backend's run-stats lines and the lines naming a
+    temporary path), run-end metrics (counters and span seconds), the K1
+    and K2 launches it made (counts zeroed just before, read just after),
+    the final statuses of its lanes, its wall to the card's last work,
+    and what it left: the kept digests, the minimized bytes or the
+    captures."""
+    import contextlib
+    import io
+
+    import torch
+
+    from wtf_tpu_torch import cli
+    from wtf_tpu_torch.interp import pstep
+    from wtf_tpu_torch.telemetry import read_events
+
+    dump = work / f"{cmd}-captures.json"
+    argv = {"minset": ["campaign", "--runs", "0", "--max_len", "96",
+                       "--seed", "5", "--target", str(source)],
+            "distill": ["triage", "distill", "--target", str(source)],
+            "minimize": ["triage", "minimize", "--input", str(source)],
+            "vbreak": ["triage", "vbreak", "--input", str(source),
+                       "--variants", str(lanes - 1), "--out", str(dump)]
+            + VBREAK_AT}[cmd]
+    telemetry = work / f"{cmd}-telemetry"
+    built = []
+    build_backend = cli.build_backend
+
+    def keeping(*args, **kwargs):
+        backend, paths = build_backend(*args, **kwargs)
+        built.append(backend)
+        return backend, paths
+
+    for key in pstep.LAUNCHES:
+        pstep.LAUNCHES[key] = 0
+    out = io.StringIO()
+    cli.build_backend = keeping
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(argv + [
+                "--name", "demo_tlv", "--fused-step", "on", "--lanes",
+                str(lanes), "--limit", "20000", "--device", device,
+                "--telemetry-dir", str(telemetry)])
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        cli.build_backend = build_backend
+    launches = dict(pstep.LAUNCHES)
+    statuses = dict(built[0].status_counts)
+    del built
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    end = [e for e in read_events(telemetry / "events.jsonl")
+           if e["type"] == "run-end"]
+    check(bool(end), f"{cmd}: no run-end record in events.jsonl")
+    lines = [strip_clock(ln) for ln in out.getvalue().splitlines()
+             if not ln.startswith(("[", "wrote "))]
+    rec = {"rc": rc, "lines": lines, "metrics": end[-1]["metrics"],
+           "launches": launches, "statuses": statuses, "wall": wall}
+    if cmd in ("minset", "distill"):
+        rec["left"] = tree_digests(source)[0]
+    elif cmd == "minimize":
+        done = source.with_name(source.name + ".min")
+        rec["left"] = done.read_bytes() if done.exists() else None
+    else:
+        rec["left"] = json.loads(dump.read_text()) if dump.exists() \
+            else None
+    return rec
+
+
+def span_s(metrics: dict, path: str) -> float:
+    return float(metrics.get("phase.seconds", {}).get(path, 0.0))
+
+
+def line_with(lines: list, prefix: str) -> str:
+    found = [ln for ln in lines if ln.startswith(prefix)]
+    check(bool(found), f"no {prefix!r} line in {lines[-4:]}")
+    return found[-1]
+
+
+def replay_buckets(testcases: list, device: str) -> list:
+    """The crash bucket of each testcase (None for a non-crash), replayed
+    in one batch of a fresh TWIN_LANES-lane backend."""
+    from wtf_tpu_torch.backend.gpu import GpuBackend
+    from wtf_tpu_torch.harness import demo_tlv
+    from wtf_tpu_torch.triage import ReplayCore
+
+    backend = GpuBackend(demo_tlv.build_snapshot(), n_lanes=TWIN_LANES,
+                         limit=20000, device=device, fused_step="on")
+    backend.initialize()
+    demo_tlv.TARGET.init(backend)
+    sweep = ReplayCore(backend, demo_tlv.TARGET).replay(
+        testcases, want_buckets=True)
+    return [sweep.buckets.get(i) for i in range(len(testcases))]
+
+
+def hex_of(path: Path) -> str:
+    from wtf_tpu_torch.utils.hashing import hex_digest
+
+    return hex_digest(path.read_bytes())
+
+
+def phase_triage(k1: dict, k2: dict, record: dict, keep: Path,
+                 work: Path, device: str = "cuda",
+                 lanes: int = LANES) -> bytes:
+    """Phases 24-26: the minset, distill, minimize and vbreak of phase
+    21's corpus at 4096 lanes x 128 rows, K1 on (each command's counts
+    zeroed just before it and read just after).  Returns vbreak's input
+    for the 64-lane twins."""
+    import importlib
+    import re
+
+    from wtf_tpu_torch.backend.gpu import GpuBackend
+
+    rec = {}
+    t24 = triage_corpus(keep, work / "minset")
+    rec["minset"] = m = triage_run("minset", t24, lanes, device, work)
+    files = sorted((t24 / "inputs").iterdir())
+    corpus = sorted({hex_of(p) for p in files})
+    kept_line = line_with(m["lines"], "minset: kept ")
+    n_kept = int(kept_line.split()[2].split("/")[0])
+    check(m["rc"] in (0, 2), f"phase 24: rc {m['rc']}")
+    check(m["launches"]["fused_step"] > 0, "phase 24: K1 never launched")
+    check(len(m["left"]) == n_kept and set(m["left"]) <= set(corpus)
+          and kept_line.endswith(f"/{len(corpus)} seeds"),
+          f"phase 24: outputs/ holds {len(m['left'])} files for "
+          f"{kept_line!r}")
+    check(sum(m["statuses"].values()) == len(corpus)
+          and set(m["statuses"]) <= TERMINAL,
+          f"phase 24: statuses {m['statuses']} for {len(corpus)} seeds")
+    print(f"phase 24: minset (`campaign --runs 0`) of phase 21's "
+          f"{len(files)} outputs and crashes ({len(corpus)} distinct) at "
+          f"{lanes} lanes: {kept_line!r}, outputs/ == the kept subset; "
+          f"{line_with(m['lines'], '#')}; "
+          f"{m['metrics'].get('triage.dispatches', 0)} dispatches, K1 "
+          f"launches {m['launches']['fused_step']}, K2 "
+          f"{m['launches']['probe']}; statuses {m['statuses']}; "
+          f"{m['wall']:.2f} s wall (execute "
+          f"{span_s(m['metrics'], 'execute'):.2f} s)")
+
+    dmod = importlib.import_module("wtf_tpu_torch.triage.distill")
+    greedy_cover, cover_s = dmod.greedy_cover, []
+
+    def timed_cover(planes):
+        t0 = time.perf_counter()
+        try:
+            return greedy_cover(planes)
+        finally:
+            cover_s.append(time.perf_counter() - t0)
+
+    t25 = triage_corpus(keep, work / "distill")
+    dmod.greedy_cover = timed_cover
+    try:
+        rec["distill"] = d = triage_run("distill", t25, lanes, device, work)
+    finally:
+        dmod.greedy_cover = greedy_cover
+    line = line_with(d["lines"], "distill: kept ")
+    bits = re.search(r"exact cover, (\d+)/(\d+) bits; prefix minset would "
+                     r"keep (\d+);", line)
+    check(bits is not None and bits[1] == bits[2],
+          f"phase 25: distill lost coverage: {line!r}")
+    n_keep = int(line.split()[2].split("/")[0])
+    check(int(bits[3]) == n_kept, f"phase 25: the prefix minset keeps "
+          f"{bits[3]}, phase 24 kept {n_kept}")
+    check(n_keep <= n_kept and len(d["left"]) == n_keep,
+          f"phase 25: the exact cover keeps {n_keep} ({len(d['left'])} in "
+          f"outputs/), phase 24 kept {n_kept}")
+    check(d["launches"]["fused_step"] > 0, "phase 25: distill without K1")
+    print(f"phase 25: distill of the same {len(corpus)} seeds: {line!r}; "
+          f"{d['metrics'].get('triage.dispatches', 0)} dispatches, K1 "
+          f"launches {d['launches']['fused_step']}; {d['wall']:.2f} s wall "
+          f"(execute {span_s(d['metrics'], 'execute'):.2f} s, the greedy "
+          f"set cover on the host {sum(cover_s):.2f} s)")
+
+    largest = max((keep / "crashes").iterdir(),
+                  key=lambda p: (p.stat().st_size, p.name))
+    crash_file = work / largest.name
+    crash_file.write_bytes(largest.read_bytes())
+    rec["minimize"] = mz = triage_run("minimize", crash_file, lanes, device,
+                                      work)
+    line = line_with(mz["lines"], "minimize: ")
+    minimized, met = mz["left"], mz["metrics"]
+    check(mz["rc"] == 0 and minimized is not None,
+          f"phase 25: minimize failed: {line!r}")
+    check(len(minimized) <= largest.stat().st_size
+          and mz["launches"]["fused_step"] > 0,
+          f"phase 25: minimize gave {len(minimized)} bytes from "
+          f"{largest.stat().st_size}, K1 {mz['launches']}")
+    bucket = re.search(r"\(bucket (\S+);", line)[1]
+    replayed = replay_buckets([largest.read_bytes(), minimized], device)
+    check(replayed == [bucket, bucket], f"phase 25: replayed buckets "
+          f"{replayed}, the minimizer's {bucket}")
+    disp = met.get("triage.dispatches", 0)
+    cands = met.get("triage.candidates", 0)
+    print(f"phase 25: minimize of phase 21's largest crasher {largest.name} "
+          f"({largest.stat().st_size} bytes): {line!r}; {disp} dispatches, "
+          f"{cands / max(disp, 1):.1f} candidates per dispatch "
+          f"({cands / max(disp, 1) / lanes:.3f} of the lanes; the rest "
+          f"replay the current reproducer), "
+          f"{met.get('triage.minimize_rounds', 0)} rounds, K1 launches "
+          f"{mz['launches']['fused_step']}; {mz['wall']:.2f} s wall "
+          f"(execute {span_s(met, 'execute'):.2f} s); the crasher and the "
+          f"result replayed apart: both bucket {bucket}")
+
+    vbreak_input, note = minimized, ""
+    timed = {"s": 0.0, "n": 0}
+    dispatch_bp = GpuBackend._dispatch_bp
+
+    def timed_bp(self, runner, view, lane):
+        t0 = time.perf_counter()
+        try:
+            return dispatch_bp(self, runner, view, lane)
+        finally:
+            timed["s"] += time.perf_counter() - t0
+            timed["n"] += 1
+
+    vb_file = work / "vbreak.bin"
+    GpuBackend._dispatch_bp = timed_bp
+    try:
+        for attempt in range(2):
+            vb_file.write_bytes(vbreak_input)
+            timed.update(s=0.0, n=0)
+            rec["vbreak"] = vb = triage_run("vbreak", vb_file, lanes,
+                                            device, work)
+            caps = [c for c in vb["left"] or [] if c]
+            if caps or attempt:
+                break
+            vbreak_input = SMOKE_CRASHER
+            note = (" (phase 25's minimized crasher never reached the "
+                    "second hit: triage_smoke's crasher instead)")
+    finally:
+        GpuBackend._dispatch_bp = dispatch_bp
+    met = vb["metrics"]
+    check(vb["rc"] == 0 and caps and all(c["icount"] > 0 for c in caps),
+          f"phase 26: {len(caps)} captures, rc {vb['rc']}")
+    check(vb["launches"]["fused_step"] > 0, "phase 26: vbreak without K1")
+    pull, push = (span_s(met, "execute/service-pull"),
+                  span_s(met, "execute/service-push"))
+    services = timed["s"] + pull + push
+    print(f"phase 26: vbreak at tlv!parse+0x12, hit 2, over {lanes} "
+          f"replays{note}: {line_with(vb['lines'], 'vbreak: ')!r}; K1 "
+          f"launches {vb['launches']['fused_step']}; {vb['wall']:.2f} s "
+          f"wall; host breakpoint services {services:.2f} s = "
+          f"{services / vb['wall']:.3f} of the wall ({timed['n']} handler "
+          f"calls {timed['s']:.2f} s, "
+          f"{timed['s'] / max(timed['n'], 1) * 1e3:.3f} ms each; view pulls "
+          f"{pull:.2f} s, pushes {push:.2f} s; "
+          f"{met.get('runner.bp_dispatches', 0)} bp dispatches)")
+    for name, r in rec.items():
+        k1["launches_by_path"][f"demo_tlv triage {name}"] = \
+            r["launches"]["fused_step"]
+        k2["launches_by_path"][f"demo_tlv triage {name}"] = \
+            r["launches"]["probe"]
+    record["triage"] = {
+        name: {"wall_s": r["wall"], "rc": r["rc"], "lines": r["lines"][:4],
+               "k1_launches": r["launches"]["fused_step"],
+               "k2_launches": r["launches"]["probe"],
+               "statuses": r["statuses"],
+               "counters": {k: v for k, v in r["metrics"].items()
+                            if k.startswith(("triage.", "runner."))},
+               "spans": r["metrics"].get("phase.seconds", {})}
+        for name, r in rec.items()}
+    record["triage"]["minset"].update(files=len(files), seeds=len(corpus),
+                                      kept=n_kept)
+    record["triage"]["distill"]["greedy_cover_s"] = sum(cover_s)
+    record["triage"]["minimize"].update(
+        input=largest.name, from_len=largest.stat().st_size,
+        to_len=len(minimized))
+    record["triage"]["vbreak"].update(
+        handler_s=timed["s"], handler_calls=timed["n"],
+        service_share=services / vb["wall"], captures=len(caps),
+        input_note=note)
+    return vbreak_input
+
+
+def triage_twin(device: str, which: str, keep: Path,
+                vbreak_input: bytes) -> tuple:
+    """Half of the 64-lane twins of phases 24-26 (worker processes run the
+    CPU side): `corpus` runs the minset and distill of phase 21's
+    TWIN_CORPUS largest files, `crasher` minimize of triage_smoke's
+    crasher and vbreak of phase 26's input.  Returns (what must be equal
+    between card and CPU, seconds)."""
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        if which == "corpus":
+            runs = [(cmd, triage_corpus(keep, work / cmd, TWIN_CORPUS))
+                    for cmd in ("minset", "distill")]
+        else:
+            (work / "crash.bin").write_bytes(SMOKE_CRASHER)
+            (work / "vbreak.bin").write_bytes(vbreak_input)
+            runs = [("minimize", work / "crash.bin"),
+                    ("vbreak", work / "vbreak.bin")]
+        for cmd, source in runs:
+            r = triage_run(cmd, source, TWIN_LANES, device, work)
+            # the minset's heartbeat lines follow the clock: its last two
+            # lines (the stats line and `minset: kept`) are the result
+            out[cmd] = (r["rc"], r["lines"][-2:] if cmd == "minset"
+                        else r["lines"], r["left"])
+    return out, time.perf_counter() - t0
+
+
+def phase_triage_card_vs_cpu(cpu, keep: Path, vbreak_input: bytes) -> None:
+    """Phases 24-26 at 64 lanes: the card equals the CPU on every printed
+    line, kept digest, minimized byte and capture."""
+    card, card_s, cpu_s = {}, 0.0, []
+    for which in ("corpus", "crasher"):
+        got, seconds = triage_twin("cuda", which, keep, vbreak_input)
+        want, cpu_seconds = cpu[f"triage {which}"].result()
+        card.update(got)
+        card_s += seconds
+        cpu_s.append(cpu_seconds)
+        for cmd in got:
+            check(got[cmd] == want[cmd],
+                  f"{TWIN_LANES}-lane triage {cmd} differs between card "
+                  f"and cpu: "
+                  f"{got[cmd][1][-2:]} vs {want[cmd][1][-2:]}")
+    check(card["minimize"][2] == SMOKE_MINIMAL,
+          f"{TWIN_LANES}-lane minimize: not the known-minimal reproducer")
+    caps = [c for c in card["vbreak"][2] or [] if c]
+    print(f"phases 24-26: {TWIN_LANES}-lane minset "
+          f"({card['minset'][1][-1]!r}), distill, minimize "
+          f"({len(SMOKE_CRASHER)} -> {len(card['minimize'][2])} bytes) and "
+          f"vbreak ({len(caps)} captures of {TWIN_LANES}): card == cpu on "
+          f"every line, digest, byte and "
+          f"capture (card {card_s:.1f} s, cpu {cpu_s[0]:.1f} s and "
+          f"{cpu_s[1]:.1f} s in two worker processes)")
+
+
+def start_cpu_references(pool, keep: Path, vbreak_input: bytes) -> dict:
+    """The CPU sides of phases 6, 9, 11, 14, 17, 20, 21-23 and 24-26,
+    started together in worker processes once the card's timed phases
+    are done."""
     import os
 
     jobs = {"demo_tlv": (small_campaign, "demo_tlv", "cpu"),
@@ -2860,7 +3263,11 @@ def start_cpu_references(pool) -> dict:
             "demo_spin": (small_campaign, "demo_spin", "cpu",
                           SPIN_SMALL_LIMIT, (), True),
             "fp loop": (fp_loop_cpu,),
-            "fault tolerance": (small_tier, "cpu")}
+            "fault tolerance": (small_tier, "cpu"),
+            "triage corpus": (triage_twin, "cpu", "corpus", keep,
+                              vbreak_input),
+            "triage crasher": (triage_twin, "cpu", "crasher", keep,
+                               vbreak_input)}
     for name in NEW_TARGETS:
         jobs[name] = (small_campaign, name, "cpu", 100000, (), True)
     threads = max(1, (os.cpu_count() or 1) // len(jobs))
@@ -2888,31 +3295,54 @@ def main(argv=None) -> int:
                        "wtf_tpu/interp/pstep.py:742")
     k2 = kernel_record("probe", "wtf_tpu_torch/csrc/probe.cu",
                        "wtf_tpu/interp/pstep.py:144")
+    elapsed = {}
+    t_start = time.perf_counter()
+
+    def stamp(name: str) -> None:
+        elapsed[name] = round(time.perf_counter() - t_start, 1)
+
     card = phase_build(record)
     phase_probe(dev, k1, k2)
     phase_random(dev, k1)
     phase_run()
+    stamp("1-4")
     phase_campaign(k1, k2, record)
+    stamp("5")
     phase_step_sys(dev, record)
+    stamp("7")
     kernel_out = phase_kernel_campaign(k1, k2, record)
+    stamp("8")
     window_out = phase_window_campaign(k1, k2, record)
+    stamp("10")
     phase_decode(dev, record)
     phase_dd_window_campaign(k1, k2, record, window_out)
+    stamp("12-13")
     phase_dump(k1, k2, record, kernel_out)
+    stamp("15")
     phase_targets(k1, k2, record)
+    stamp("16")
     phase_spin(k1, k2, record)
+    stamp("18")
     phase_step_fp(dev, record)
     fp_card = phase_fp_loop(k1, k2, record)
-    supervised = phase_supervised(k1, k2, record, window_out)
+    stamp("19-20")
+    work = tempfile.TemporaryDirectory()
+    keep = Path(work.name) / "phase21"
+    keep.mkdir()
+    supervised = phase_supervised(k1, k2, record, window_out, keep)
     phase_faults(k1, k2, record, window_out)
     phase_kill_resume(record, supervised)
-    # the CPU references of phases 6, 9, 11, 14, 17, 20 and 21-23 run in
-    # worker processes, after every timed phase, while this process runs
-    # their card sides
+    stamp("21-23")
+    vbreak_input = phase_triage(k1, k2, record, keep,
+                                Path(work.name) / "triage")
+    stamp("24-26")
+    # the CPU references of phases 6, 9, 11, 14, 17, 20, 21-23 and 24-26
+    # run in worker processes, after every timed phase, while this
+    # process runs their card sides
     with ProcessPoolExecutor(
             max_workers=12, mp_context=multiprocessing.get_context(
                 "spawn")) as pool:
-        cpu = start_cpu_references(pool)
+        cpu = start_cpu_references(pool, keep, vbreak_input)
         phase_card_vs_cpu(cpu)
         phase_targets_card_vs_cpu(cpu)
         card_window = phase_window_card_vs_cpu(cpu)
@@ -2920,6 +3350,12 @@ def main(argv=None) -> int:
         phase_new_targets_card_vs_cpu(cpu)
         phase_fp_loop_card_vs_cpu(cpu, fp_card)
         phase_tier_card_vs_cpu(cpu, card_window)
+        phase_triage_card_vs_cpu(cpu, keep, vbreak_input)
+    work.cleanup()
+    stamp("twins")
+    record["elapsed_s"] = elapsed
+    print(f"chip_smoke: every phase passed in {elapsed['twins']:.1f} s "
+          f"(seconds from the start at the end of each group: {elapsed})")
 
     kernels = {"kernels": [k1, k2]}
     if args.out is not None:

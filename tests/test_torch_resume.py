@@ -326,10 +326,10 @@ def test_cli_checkpoint_resume_roundtrip(tmp_path, capsys, seeded):
     assert line_whole.startswith("#8 cov: ")
 
 
-def test_cli_resume_guards(tmp_path):
+def test_cli_resume_guards(tmp_path, capsys):
     """The reference CLI's refusals, in its order: --checkpoint-every
-    without a directory, and --resume with --runs 0 (before the port's
-    own refusal of --runs 0)."""
+    without a directory, and --resume with --runs 0; without --resume,
+    --runs 0 is the minset (here of no seeds)."""
     from wtf_tpu_torch.cli import main
 
     with pytest.raises(SystemExit, match="checkpoint-every"):
@@ -338,9 +338,11 @@ def test_cli_resume_guards(tmp_path):
     with pytest.raises(SystemExit, match="minset"):
         main(["campaign", "--name", "demo_tlv", "--runs", "0",
               "--resume", str(tmp_path), "--device", "cpu"])
-    with pytest.raises(SystemExit, match="--runs must be > 0"):
-        main(["campaign", "--name", "demo_tlv", "--runs", "0",
-              "--device", "cpu"])
+    capsys.readouterr()
+    assert main(["campaign", "--name", "demo_tlv", "--runs", "0",
+                 "--lanes", "2", "--device", "cpu"]) == 0
+    assert capsys.readouterr().out.splitlines()[-1] \
+        == "minset: kept 0/0 seeds"
 
 
 # ---------------------------------------------------------------------------

@@ -1,56 +1,87 @@
-"""CLI entry point: `python -m wtf_tpu_torch {run|campaign|snapshot}`.
+"""CLI entry point: `python -m wtf_tpu_torch {run|campaign|triage|snapshot}`.
 
-The counterpart of wtf_tpu/cli.py for the subcommands this slice carries,
-with the JAX package's flag names and meanings for the subset it supports
-plus `--device`:
+The counterpart of wtf_tpu/cli.py for the single-device subcommands, with
+the JAX package's flag names and meanings for the subset it supports plus
+`--device`:
 
   run       replay an input file or directory on the device batch (lane 0),
-            optionally writing a rip/cov/tenet trace through the oracle
+            optionally writing a rip/cov/tenet trace through the oracle;
+            `--coverage DIR` counts the listed basic blocks hit
   campaign  the single-process fuzz loop over one device batch, with the
             host mutators or the device one (--mutator devmangle), batch
-            at a time or in multi-batch windows (--megachunk N)
+            at a time or in multi-batch windows (--megachunk N);
+            `--runs 0` is the minset: replay inputs/ (and any prior
+            outputs/) once and leave outputs/ holding exactly the
+            coverage-increasing subset
+  triage    batched crash triage on the device batch (wtf_tpu_torch/triage):
+            minimize (crash bisection), distill (exact-attribution corpus
+            minset), vbreak (virtual-breakpoint replay)
   snapshot  convert a snapshot between mem.npz and a Windows crash dump
             (mem.dmp, bitmap or full)
 
-`run` and `campaign` run on a CUDA device by default (`--device cuda`)
-and raise when there is none; `--device cpu` runs the plain PyTorch
-versions of the kernels on the CPU.  `--fused-step on|auto` drives the fused step kernel
-(interp/pstep.py); on a CUDA device both raise when it cannot be built.
-`--device-decode` services decode-cache misses on the device
+Every subcommand but `snapshot` runs on a CUDA device by default (`--device
+cuda`) and raises when there is none; `--device cpu` runs the plain
+PyTorch versions of the kernels on the CPU.  `triage vbreak --backend emu`
+replays on the single-step oracle instead (`--backend gpu`, the default,
+is the device batch).  `--fused-step on|auto` drives the fused step
+kernel (interp/pstep.py); on a CUDA device both raise when it cannot be
+built.  `--device-decode` services decode-cache misses on the device
 (interp/devdec.py).  `--state DIR` loads the snapshot from DIR (mem.npz or
-mem.dmp, regs.json, symbol-store.json) instead of the target's factory.
+mem.dmp, regs.json, symbol-store.json) instead of the target's factory;
+`--inputs/--outputs/--crashes` override the dirs under `--target`.
 `--supervise` / `--dispatch-timeout` put every device dispatch under the
 supervisor (wtf_tpu_torch/supervise), and `campaign --checkpoint-every` /
 `--resume` write and continue crash-safe checkpoints
-(wtf_tpu_torch/resume).
+(wtf_tpu_torch/resume).  `--telemetry-dir` writes events.jsonl (run-start
+first, run-end with a metrics dump last), `--trace-out` a Chrome-trace
+timeline of every span; `--target-module` imports modules that register
+more targets.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import importlib
+import logging
 import random
 import sys
+from contextlib import contextmanager
 from pathlib import Path
 from typing import List, Optional
 
 from wtf_tpu_torch.config import TargetPaths
 from wtf_tpu_torch.core.results import Crash
 from wtf_tpu_torch.harness.targets import Targets, load_builtin_targets
-from wtf_tpu_torch.telemetry import NULL, Registry
+from wtf_tpu_torch.telemetry import NULL, Registry, open_event_log
 
 TRACE_TYPES = ("rip", "cov", "tenet")
 
 
 def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--name", required=True, help="registered target name")
+    p.add_argument("--target-module", action="append", default=[],
+                   help="extra python module(s) to import for target "
+                        "registration")
     p.add_argument("--target", type=Path, default=None,
                    help="target root dir (inputs/outputs/crashes/state "
                         "default underneath, wtf.cc:48-68)")
+    p.add_argument("--inputs", type=Path, default=None)
+    p.add_argument("--outputs", type=Path, default=None)
+    p.add_argument("--crashes", type=Path, default=None)
     p.add_argument("--state", type=Path, default=None,
                    help="snapshot dir (mem.npz or mem.dmp + regs.json); "
                         "defaults to <target>/state, else the target's "
                         "own snapshot factory")
+    p.add_argument("--telemetry-dir", type=Path, default=None,
+                   help="write machine-readable telemetry (events.jsonl: "
+                        "run-start/heartbeat/new-coverage/crash/timeout/"
+                        "run-end records with a full metrics dump)")
+    p.add_argument("--trace-out", type=Path, default=None,
+                   help="write a Chrome-trace-event timeline "
+                        "(chrome://tracing / Perfetto JSON) of every span, "
+                        "plus instant marks for point events (crash/"
+                        "new-coverage/checkpoint/recovery)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a CUDA device), "
                         "cuda:N, or cpu")
@@ -110,14 +141,19 @@ def build_parser() -> argparse.ArgumentParser:
     run.add_argument("--trace-path", type=Path, default=None,
                      help="file (single input) or dir to write traces")
     run.add_argument("--trace-type", choices=TRACE_TYPES, default="rip")
+    run.add_argument("--coverage", type=Path, default=None,
+                     help="dir of .cov files (IDA/Binja/Ghidra exports); "
+                          "prints covered/total per run set")
     run.add_argument("--lanes", type=int, default=4)
 
     camp = sub.add_parser(
         "campaign", help="single-process fuzz loop over one device batch")
     _add_common(camp)
     camp.add_argument("--limit", type=int, default=0)
-    camp.add_argument("--runs", type=int, required=True,
-                      help="testcase budget (> 0)")
+    camp.add_argument("--runs", type=int, default=0,
+                      help="testcase budget; 0 = minset: replay inputs/ "
+                           "once and write the coverage-minimal subset to "
+                           "outputs/ (reference --runs=0, server.h:552-556)")
     camp.add_argument("--max_len", type=int, default=1024 * 1024)
     camp.add_argument("--seed", type=int, default=0)
     camp.add_argument("--lanes", type=int, default=64)
@@ -129,6 +165,7 @@ def build_parser() -> argparse.ArgumentParser:
                            "(wtf_tpu_torch/devmut): the whole batch is "
                            "generated on the device from the corpus slab "
                            "(a target with a DeviceInsertSpec only)")
+    camp.add_argument("--stop-on-crash", action="store_true")
     camp.add_argument("--megachunk", type=int, default=0, metavar="N",
                       help="multi-batch windows (wtf_tpu_torch/fuzz/"
                            "megachunk): fold up to N whole batches — "
@@ -154,6 +191,70 @@ def build_parser() -> argparse.ArgumentParser:
                            "set, corpus, RNG and devmut streams restore "
                            "bit-identically to the uninterrupted run")
 
+    triage = sub.add_parser(
+        "triage", help="batched crash triage on the device batch "
+                       "(wtf_tpu_torch/triage): minimize / distill / vbreak")
+    tsub = triage.add_subparsers(dest="triage_cmd", required=True)
+
+    tmin = tsub.add_parser(
+        "minimize", help="bisect a crasher to a minimal reproducer of "
+                         "the SAME crash bucket — thousands of candidate "
+                         "reductions built on the device per dispatch")
+    _add_common(tmin)
+    tmin.add_argument("--input", type=Path, required=True,
+                      help="the crashing testcase")
+    tmin.add_argument("--output", type=Path, default=None,
+                      help="where the minimized reproducer lands "
+                           "(default: <input>.min)")
+    tmin.add_argument("--limit", type=int, default=0)
+    tmin.add_argument("--lanes", type=int, default=64,
+                      help="candidates per dispatch")
+    tmin.add_argument("--max-rounds", type=int, default=64)
+
+    tdis = tsub.add_parser(
+        "distill", help="re-execute the corpus in one batched sweep, "
+                        "compute exact per-testcase edge attribution "
+                        "from the coverage bitmaps, and keep a set-cover "
+                        "subset with identical aggregate coverage (the "
+                        "exact-attribution minset)")
+    _add_common(tdis)
+    tdis.add_argument("--from-checkpoint", type=Path, default=None,
+                      metavar="DIR",
+                      help="distill a campaign checkpoint's corpus "
+                           "(wtf_tpu_torch/resume dir) instead of inputs/")
+    tdis.add_argument("--limit", type=int, default=0)
+    tdis.add_argument("--lanes", type=int, default=64)
+
+    tvb = tsub.add_parser(
+        "vbreak", help="virtual-breakpoint replay: arm a breakpoint at "
+                       "a RIP/icount and capture a register+memory "
+                       "window per lane across (perturbed) replays")
+    _add_common(tvb)
+    tvb.add_argument("--backend", choices=("gpu", "emu"), default="gpu",
+                     help="gpu = the device batch on --device (default); "
+                          "emu = the single-step oracle (debugging "
+                          "convenience; one replay at a time)")
+    tvb.add_argument("--input", type=Path, required=True,
+                     help="testcase file or directory")
+    tvb.add_argument("--break-at", required=True,
+                     help="capture point: hex address, symbol, or "
+                          "symbol+0xOFF")
+    tvb.add_argument("--hit", type=int, default=1,
+                     help="capture on the Nth arrival at the RIP")
+    tvb.add_argument("--min-icount", type=int, default=0,
+                     help="only capture once this many instructions "
+                          "retired (arrivals before resume past the bp)")
+    tvb.add_argument("--mem", default="",
+                     help="memory window GVA:LEN (hex ok; default: 64 "
+                          "bytes at rsp)")
+    tvb.add_argument("--variants", type=int, default=0,
+                     help="add N deterministic single-byte perturbations "
+                          "per input to the sweep")
+    tvb.add_argument("--out", type=Path, default=None,
+                     help="write captures as JSON")
+    tvb.add_argument("--limit", type=int, default=0)
+    tvb.add_argument("--lanes", type=int, default=64)
+
     snap = sub.add_parser(
         "snapshot", help="convert snapshots between formats")
     snap.add_argument("--state", type=Path, required=True,
@@ -165,17 +266,72 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def _lookup_target(name: str):
+def _paths_from(args) -> TargetPaths:
+    return TargetPaths(target=args.target, inputs=args.inputs,
+                       outputs=args.outputs, crashes=args.crashes,
+                       state=args.state).resolve()
+
+
+def _lookup_target(args):
     load_builtin_targets()
-    return Targets.instance().get(name)
+    for module in args.target_module:
+        importlib.import_module(module)
+    return Targets.instance().get(args.name)
 
 
-def build_backend(target, args, registry: Registry):
-    """The GpuBackend of one invocation, initialized and target-armed."""
+@contextmanager
+def _telemetry_for(args):
+    """One registry + one event sink per CLI invocation, wired into the
+    backend, the campaign loop and the heartbeat (wtf_tpu/cli.py
+    `_telemetry_for`).  A fresh Registry, so repeated in-process
+    invocations don't bleed counters.  Run-start on entry, run-end (with
+    the metrics dump) and close on ANY exit, a failed backend build
+    included; with --trace-out every span becomes a Chrome-trace complete
+    event and every point event an instant mark."""
+    registry = Registry()
+    events = open_event_log(getattr(args, "telemetry_dir", None))
+    trace_out = getattr(args, "trace_out", None)
+    collector = None
+    if trace_out is not None:
+        from wtf_tpu_torch.telemetry import TapEventLog, TraceCollector
+
+        collector = TraceCollector()
+        registry.spans.collector = collector
+
+        def _instant(type_, fields):
+            if type_ in ("heartbeat", "run-start", "run-end"):
+                return
+            collector.instant(type_, {
+                k: v for k, v in fields.items()
+                if isinstance(v, (str, int, float, bool))})
+
+        events = TapEventLog(events, _instant)
+    events.emit("run-start", subcommand=args.subcommand,
+                name=getattr(args, "name", None),
+                backend=getattr(args, "backend", None),
+                argv=getattr(args, "_argv", None))
+    try:
+        yield registry, events
+    finally:
+        events.emit("run-end", metrics=registry.dump())
+        if collector is not None:
+            try:
+                n = collector.write(trace_out)
+                print(f"trace: {n} events -> {trace_out}")
+            except OSError as e:
+                logging.getLogger("wtf_tpu_torch").warning(
+                    "trace write failed: %s", e)
+        events.close()
+
+
+def build_backend(target, args, registry: Registry, events=NULL):
+    """The backend of one invocation, initialized and target-armed: the
+    GpuBackend on --device, or the single-step oracle for `--backend
+    emu`.  Returns (backend, paths)."""
     from wtf_tpu_torch.backend.gpu import GpuBackend
     from wtf_tpu_torch.snapshot.loader import load_snapshot
 
-    paths = TargetPaths(target=args.target, state=args.state).resolve()
+    paths = _paths_from(args)
     with registry.spans.span("snapshot-load"):
         if paths.state and Path(paths.state).exists():
             snapshot = load_snapshot(paths.state)
@@ -184,11 +340,18 @@ def build_backend(target, args, registry: Registry):
         else:
             raise SystemExit(f"target {target.name!r} has no snapshot "
                              f"factory and no --state dir was given")
-    backend = GpuBackend(snapshot, n_lanes=args.lanes, limit=args.limit,
-                         registry=registry, events=NULL, device=args.device,
-                         fused_step=args.fused_step, fused_k=args.fused_k,
-                         device_decode=args.device_decode,
-                         **_supervise_kwargs(args))
+    if getattr(args, "backend", "gpu") == "emu":
+        from wtf_tpu_torch.backend.emu import EmuBackend
+
+        backend = EmuBackend(snapshot, limit=args.limit, registry=registry,
+                             events=events)
+    else:
+        backend = GpuBackend(snapshot, n_lanes=args.lanes, limit=args.limit,
+                             registry=registry, events=events,
+                             device=args.device, fused_step=args.fused_step,
+                             fused_k=args.fused_k,
+                             device_decode=args.device_decode,
+                             **_supervise_kwargs(args))
     with registry.spans.span("init"):
         backend.initialize()
     target.init(backend)
@@ -204,14 +367,14 @@ class ReplayRun:
     icount: int
 
 
-def replay(args):
+def replay(args, registry: Optional[Registry] = None, events=NULL):
     """`run`: every input through lane 0 of the device batch, in the
     reference's RunTestcaseAndRestore order (client.cc:88-180).  Returns
     (backend, [ReplayRun])."""
     from wtf_tpu_torch.core.results import Timedout
 
-    target = _lookup_target(args.name)
-    backend, _ = build_backend(target, args, Registry())
+    target = _lookup_target(args)
+    backend, _ = build_backend(target, args, registry or Registry(), events)
     inputs: List[Path] = (
         sorted(p for p in args.input.iterdir() if p.is_file())
         if args.input.is_dir() else [args.input])
@@ -241,12 +404,24 @@ def replay(args):
 
 
 def cmd_run(args) -> int:
-    backend, runs = replay(args)
     crashes = 0
-    for run in runs:
-        crashes += isinstance(run.result, Crash)
-        print(f"{run.path.name}: {run.result} (|cov| = {len(run.coverage)})")
-    backend.print_run_stats()
+    with _telemetry_for(args) as (registry, events):
+        backend, runs = replay(args, registry, events)
+        for run in runs:
+            if isinstance(run.result, Crash):
+                crashes += 1
+                events.emit("crash", name=run.result.name,
+                            input=run.path.name)
+            print(f"{run.path.name}: {run.result} "
+                  f"(|cov| = {len(run.coverage)})")
+        backend.print_run_stats()
+        if args.coverage is not None:
+            from wtf_tpu_torch.utils.covfiles import parse_cov_files
+
+            wanted = parse_cov_files(args.coverage)
+            covered = backend.aggregate_coverage() & wanted
+            print(f"coverage: {len(covered)}/{len(wanted)} "
+                  f"listed basic blocks hit")
     return 0 if crashes == 0 else 2
 
 
@@ -261,10 +436,11 @@ def mutator_for(target, rng: random.Random, max_len: int):
     return best_mangle_mutator(rng, max_len)
 
 
-def build_campaign(args):
-    """`campaign` up to its first batch: seed the corpus, build the
-    mutator from --seed and the FuzzLoop, and with --resume restore the
-    checkpoint into it.  Returns the FuzzLoop."""
+def build_campaign(args, registry: Optional[Registry] = None, events=NULL):
+    """`campaign` up to its first batch: seed the corpus (left empty for
+    the minset, which fills it from its own walk), build the mutator from
+    --seed and the FuzzLoop, and with --resume restore the checkpoint
+    into it.  Returns the FuzzLoop."""
     from wtf_tpu_torch.fuzz.corpus import Corpus
     from wtf_tpu_torch.fuzz.loop import FuzzLoop
     from wtf_tpu_torch.fuzz.mutator import create_mutator
@@ -280,14 +456,13 @@ def build_campaign(args):
     if args.resume and args.runs == 0:
         raise SystemExit("--resume applies to fuzz campaigns "
                          "(--runs > 0); minset replays are stateless")
-    if args.runs <= 0:
-        raise SystemExit("--runs must be > 0 (the minset mode of --runs 0 "
-                         "is not carried by wtf_tpu_torch yet)")
-    target = _lookup_target(args.name)
-    registry = Registry()
-    backend, paths = build_backend(target, args, registry)
+    target = _lookup_target(args)
+    registry = registry if registry is not None else Registry()
+    backend, paths = build_backend(target, args, registry, events)
     rng = random.Random(args.seed or None)
-    if paths.inputs and Path(paths.inputs).is_dir():
+    if args.runs == 0:
+        corpus = Corpus(rng=rng)
+    elif paths.inputs and Path(paths.inputs).is_dir():
         corpus = Corpus.load_dir(paths.inputs, rng=rng,
                                  outputs_dir=paths.outputs)
     else:
@@ -298,7 +473,7 @@ def build_campaign(args):
         mutator = mutator_for(target, rng, args.max_len)
     loop = FuzzLoop(backend, target, mutator, corpus,
                     crashes_dir=paths.crashes, registry=registry,
-                    checkpoint_dir=ckpt_dir,
+                    events=events, checkpoint_dir=ckpt_dir,
                     checkpoint_every=args.checkpoint_every,
                     megachunk=args.megachunk)
     if args.resume:
@@ -313,27 +488,229 @@ def build_campaign(args):
     return loop
 
 
-def campaign(args):
+def campaign(args, registry: Optional[Registry] = None, events=NULL):
     """`campaign`: build it (build_campaign) and run the fuzz loop until
-    --runs testcases.  Returns the FuzzLoop.  A device the supervisor
-    cannot rebuild in this process ends the campaign with the message to
-    resume from its last checkpoint."""
+    --runs testcases (or the first crash with --stop-on-crash).  Returns
+    the FuzzLoop.  A device the supervisor cannot rebuild in this process
+    ends the campaign with the message to resume from its last
+    checkpoint."""
     from wtf_tpu_torch.supervise import DeviceLost
 
-    loop = build_campaign(args)
+    loop = build_campaign(args, registry, events)
     try:
-        loop.fuzz(runs=args.runs, print_stats=True)
+        loop.fuzz(runs=args.runs, print_stats=True,
+                  stop_on_crash=args.stop_on_crash)
     except DeviceLost as e:
         raise SystemExit(f"campaign stopped at batch {loop.batches_done}: "
                          f"{e}") from e
     return loop
 
 
+def _minset_seed_walk(paths: TargetPaths, corpus):
+    """The ONE minset measurement walk shared by `campaign --runs 0` and
+    `triage distill`: a single scan over inputs/ AND any prior outputs/
+    feeds `corpus` (shared size-sorted replay ordering; add_digested
+    dedups) and snapshots outputs/ (pre-dedup census) so it can end as
+    exactly the kept subset of what was measured.  Returns the
+    [(path, digest)] outputs snapshot."""
+    from wtf_tpu_torch.fuzz.corpus import seed_paths
+
+    out_dir = Path(paths.outputs) if paths.outputs else None
+    outputs_snapshot = []
+    for p, digest, data in seed_paths([paths.inputs, paths.outputs],
+                                      with_data=True, keep_dups=True):
+        corpus.add_digested(data, digest)
+        if out_dir and p.parent == out_dir:
+            outputs_snapshot.append((p, digest))
+    return outputs_snapshot
+
+
+def _prune_outputs(outputs_snapshot, kept) -> None:
+    """outputs/ ends as exactly the kept subset of what was measured:
+    every snapshot file's content was replayed (directly or via a
+    content-identical twin), so prune by content digest.  Files that
+    appeared after the walk were never measured and stay untouched."""
+    for p, digest in outputs_snapshot:
+        if not (digest in kept.digests and p.name == digest):
+            p.unlink(missing_ok=True)
+
+
 def cmd_campaign(args) -> int:
-    loop = campaign(args)
-    print(loop.stats.line(len(loop.corpus), loop._coverage()))
-    loop.backend.print_run_stats()
-    return 0 if loop.stats.crashes == 0 else 2
+    with _telemetry_for(args) as (registry, events):
+        if args.runs == 0:
+            # reference semantics (server.h:552-556): replay the seeds —
+            # plus any prior campaign's outputs/, so a corpus can
+            # minimize itself — and leave outputs/ holding exactly the
+            # coverage-minimal subset
+            loop = build_campaign(args, registry, events)
+            paths = _paths_from(args)
+            outputs_snapshot = _minset_seed_walk(paths, loop.corpus)
+            kept = loop.minset(paths.outputs, print_stats=True)
+            _prune_outputs(outputs_snapshot, kept)
+            print(loop.stats.line(len(loop.corpus), loop._coverage()))
+            print(f"minset: kept {len(kept)}/{len(loop.corpus)} seeds")
+            return 0 if loop.stats.crashes == 0 else 2
+        loop = campaign(args, registry, events)
+        print(loop.stats.line(len(loop.corpus), loop._coverage()))
+        loop.backend.print_run_stats()
+        return 0 if loop.stats.crashes == 0 else 2
+
+
+# ---------------------------------------------------------------------------
+# triage (wtf_tpu/cli.py cmd_triage and its subcommands)
+# ---------------------------------------------------------------------------
+
+def _parse_break_at(spec: str, symbols: dict) -> int:
+    """hex address, symbol, or symbol+0xOFF over the snapshot's symbol
+    store (the reference resolves bp sites the same way, backend.cc:
+    214-239)."""
+    base, _, off = spec.partition("+")
+    offset = int(off, 0) if off else 0
+    try:
+        return int(base, 0) + offset
+    except ValueError:
+        pass
+    if base in symbols:
+        return int(symbols[base]) + offset
+    raise SystemExit(
+        f"--break-at {spec!r}: not an address and not in the symbol "
+        f"store ({len(symbols)} symbols; e.g. {sorted(symbols)[:4]})")
+
+
+def _triage_inputs(path: Path) -> List[tuple]:
+    """[(name, bytes)] for a testcase file or directory."""
+    if path.is_dir():
+        return [(p.name, p.read_bytes())
+                for p in sorted(p for p in path.iterdir() if p.is_file())]
+    return [(path.name, path.read_bytes())]
+
+
+def cmd_triage(args) -> int:
+    """`triage {minimize,distill,vbreak}` — the batched triage engine
+    (wtf_tpu_torch/triage): replay variants at campaign throughput on the
+    same card and kernels."""
+    target = _lookup_target(args)
+    with _telemetry_for(args) as (registry, events):
+        backend, paths = build_backend(target, args, registry, events)
+        command = {"minimize": _triage_minimize, "distill": _triage_distill,
+                   "vbreak": _triage_vbreak}[args.triage_cmd]
+        return command(args, paths, backend, target, registry, events)
+
+
+def _triage_minimize(args, paths, backend, target, registry, events) -> int:
+    from wtf_tpu_torch.triage import minimize
+    from wtf_tpu_torch.utils.atomicio import atomic_write_bytes
+
+    crasher = args.input.read_bytes()
+    try:
+        result = minimize(backend, target, crasher,
+                          registry=registry, events=events,
+                          max_rounds=args.max_rounds)
+    except ValueError as e:
+        print(f"minimize: {e}")
+        return 1
+    out = args.output or args.input.with_name(args.input.name + ".min")
+    atomic_write_bytes(out, result.data)
+    print(f"minimize: {result.from_len} -> {len(result.data)} bytes "
+          f"(bucket {result.bucket}; {result.rounds} rounds, "
+          f"{result.dispatches} dispatches, {result.candidates} "
+          f"candidates, {result.simplified} bytes zeroed)")
+    print(f"wrote {out}")
+    return 0
+
+
+def _triage_distill(args, paths, backend, target, registry, events) -> int:
+    from wtf_tpu_torch.fuzz.corpus import Corpus
+    from wtf_tpu_torch.triage import distill
+
+    out_dir = Path(paths.outputs) if paths.outputs else None
+    outputs_snapshot: List[tuple] = []
+    if args.from_checkpoint:
+        # checkpoint-aware input: the campaign checkpoint's corpus, in
+        # manifest order with digests verified (wtf_tpu_torch/resume).
+        # The checkpoint is the measurement domain — pre-existing outputs/
+        # files were not measured and stay untouched.
+        from wtf_tpu_torch.resume import load_campaign
+        from wtf_tpu_torch.resume.checkpoint import restore_corpus
+
+        state, _ = load_campaign(args.from_checkpoint)
+        source = Corpus()
+        restore_corpus(source, state, args.from_checkpoint)
+    else:
+        # the campaign --runs 0 measurement walk + prune, shared with
+        # minset so the two can never drift on which outputs/ files they
+        # delete
+        source = Corpus()
+        outputs_snapshot = _minset_seed_walk(paths, source)
+    if not len(source):
+        raise SystemExit("distill found no seeds (--inputs/--target "
+                         "dirs, or --from-checkpoint)")
+    testcases = list(source)
+    result = distill(backend, target, testcases,
+                     registry=registry, events=events)
+    kept = Corpus(outputs_dir=out_dir)
+    for idx in result.keep:
+        kept.add(testcases[idx])
+    _prune_outputs(outputs_snapshot, kept)
+    crashes = registry.counter("triage.crashes").value
+    print(f"distill: kept {len(result.keep)}/{len(testcases)} seeds "
+          f"(exact cover, {result.kept_bits}/{result.total_bits} bits; "
+          f"prefix minset would keep {len(result.prefix_keep)}; "
+          f"{registry.counter('triage.dispatches').value} dispatches, "
+          f"{crashes} crashes)")
+    if out_dir:
+        print(f"wrote minset to {out_dir}")
+    return 0
+
+
+def _triage_vbreak(args, paths, backend, target, registry, events) -> int:
+    import json
+
+    from wtf_tpu_torch.triage import oracle_capture, perturbations, vbreak
+    from wtf_tpu_torch.triage.bucket import TOS_BYTES
+
+    rip = _parse_break_at(args.break_at, getattr(backend, "symbols", {}))
+    mem_gva, mem_len = None, TOS_BYTES
+    if args.mem:
+        try:
+            gva_s, _, len_s = args.mem.partition(":")
+            mem_gva = int(gva_s, 0)
+            mem_len = int(len_s, 0) if len_s else TOS_BYTES
+        except ValueError:
+            raise SystemExit(f"--mem {args.mem!r}: expected GVA[:LEN] "
+                             "(hex ok, e.g. 0x7fffe000:128)")
+    testcases = []
+    for _, data in _triage_inputs(args.input):
+        testcases.extend(perturbations(data, args.variants + 1))
+    try:
+        if args.backend == "emu":
+            captures = [
+                oracle_capture(backend, target, data, rip, index=i,
+                               hit=args.hit, min_icount=args.min_icount,
+                               mem_gva=mem_gva, mem_len=mem_len)
+                for i, data in enumerate(testcases)]
+        else:
+            captures, _results = vbreak(
+                backend, target, testcases, rip, hit=args.hit,
+                min_icount=args.min_icount, mem_gva=mem_gva,
+                mem_len=mem_len, registry=registry, events=events)
+    except ValueError as e:
+        # e.g. the target's init already owns the breakpoint — the same
+        # clean one-liner the minimize subcommand gives
+        print(f"vbreak: {e}")
+        return 1
+    got = [c for c in captures if c is not None]
+    print(f"vbreak: {len(got)}/{len(testcases)} replays captured at "
+          f"{rip:#x} (hit {args.hit})")
+    for c in got:
+        print(f"  #{c.index} icount={c.icount} rip={c.rip:#x} "
+              f"rsp={c.gpr[4]:#x} rax={c.gpr[0]:#x} "
+              f"mem[{len(c.mem)}]@{c.mem_gva:#x}={c.mem[:16].hex()}")
+    if args.out:
+        args.out.write_text(json.dumps(
+            [c.as_dict() if c else None for c in captures], indent=1))
+        print(f"wrote {args.out}")
+    return 0
 
 
 def cmd_snapshot(args) -> int:
@@ -369,7 +746,9 @@ def cmd_snapshot(args) -> int:
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
-    return {"run": cmd_run, "campaign": cmd_campaign,
+    # the argv actually parsed — the provenance in the run-start event
+    args._argv = list(argv) if argv is not None else sys.argv[1:]
+    return {"run": cmd_run, "campaign": cmd_campaign, "triage": cmd_triage,
             "snapshot": cmd_snapshot}[args.subcommand](args)
 
 

@@ -5,9 +5,10 @@ the host-mutation batch, the device-mutation batch (wtf_tpu_torch/devmut)
 and the megachunk window (wtf_tpu_torch/fuzz/megachunk.py), with
 supervision (wtf_tpu_torch/supervise: every batch under the snapshot ->
 dispatch -> recover-and-replay wrapper) and crash-safe checkpoints
-(wtf_tpu_torch/resume: `checkpoint_every` batches into `checkpoint_dir`).
-The fleet store, resharding, the minset mode and the --xprof-dir
-profiler window are not part of it.
+(wtf_tpu_torch/resume: `checkpoint_every` batches into `checkpoint_dir`),
+and the minset mode (`minset`, on the triage replay core).  The fleet
+store, resharding and the --xprof-dir profiler window are not part of
+it.
 
 This is the single-process campaign loop — the reference needs a master
 process + N client processes even on one machine (README.md:34-110); here
@@ -518,9 +519,43 @@ class FuzzLoop:
         except OSError:
             pass
 
+    def minset(self, outputs_dir, print_stats: bool = False) -> Corpus:
+        """`--runs=0` mode: replay the seed corpus exactly once — no
+        mutation — and write the coverage-increasing subset to outputs/
+        (the reference master's minset, server.h:552-556; seeds are
+        visited biggest-first per Corpus.load_dir, so the subset is
+        coverage-minimal under that ordering).  Returns the kept Corpus
+        (callers prune subsumed stale files with its digest set).
+
+        Runs on the triage batch-replay core
+        (wtf_tpu_torch/triage/replay.py) — minset and `triage distill`
+        share ONE batched execution path; the accounting, span names,
+        keep rule (first-hit credit via the backend's batch merge) and
+        printed stats are the fuzz loop's."""
+        from wtf_tpu_torch.triage.replay import ReplayCore
+
+        # Corpus handles digest-named persistence + dedup; outputs_dir=None
+        # (no outputs configured) counts without writing
+        kept = Corpus(outputs_dir=outputs_dir)
+        core = ReplayCore(self.backend, self.target,
+                          registry=self.registry, events=self.events,
+                          batch_size=self.batch_size)
+
+        def harvest(start, batch, results):
+            for lane, (data, result) in enumerate(zip(batch, results)):
+                self._account(data, result, lane=lane)
+                if self.backend.lane_found_new_coverage(lane):
+                    self.stats.new_coverage += 1
+                    kept.add(data)
+
+        core.replay(list(self.corpus), on_batch=harvest,
+                    after_batch=lambda: self._heartbeat(print_stats))
+        return kept
+
     def fuzz(self, runs: int, print_stats: bool = False,
              stop_on_crash: bool = False) -> CampaignStats:
-        """Run until `runs` testcases executed (0 = forever)."""
+        """Run until `runs` testcases executed (0 = forever; the CLI maps
+        --runs=0 to `minset` instead, matching the reference)."""
         self._runs_budget = runs
         while runs == 0 or self.stats.testcases < runs:
             found = self.run_one_batch()

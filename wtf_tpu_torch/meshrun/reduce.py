@@ -1,12 +1,15 @@
 """The batch coverage merge (single device).
 
 The counterpart of the single-device half of wtf_tpu/meshrun/reduce.py
-(`_prefix_scan`, `_merge_core`, `merge_coverage`): lane bitmaps OR into
-the campaign aggregates, and a lane earns new-coverage credit the way the
-reference master's SEQUENTIAL set-union merge gives it (server.h:816-854)
-— only for bits that are neither in the aggregate nor already contributed
-by an earlier lane of the batch.  Without the prefix rule every lane that
-finds the same new edge would enter the corpus.
+(`_prefix_scan`, `_merge_core`, `merge_coverage`, `first_hit_credit`):
+lane bitmaps OR into the campaign aggregates, and a lane earns
+new-coverage credit the way the reference master's SEQUENTIAL set-union
+merge gives it (server.h:816-854) — only for bits that are neither in
+the aggregate nor already contributed by an earlier lane of the batch.
+Without the prefix rule every lane that finds the same new edge would
+enter the corpus.  `first_hit_credit` keeps the per-lane credit planes
+of the same scan for triage's corpus distillation
+(wtf_tpu_torch/triage/replay.py).
 """
 
 from __future__ import annotations
@@ -49,3 +52,24 @@ def merge_coverage(agg_cov, agg_edge, cov, edge, include):
     new_cov_words = cov_union & ~agg_cov
     return (agg_cov | cov_union, agg_edge | edge_union, new_lane & include,
             new_cov_words)
+
+
+def first_hit_credit(agg_cov, agg_edge, cov, edge, include):
+    """Exact per-lane coverage attribution under replay order (the device
+    half of triage's corpus distillation): the same exclusive-prefix scan
+    as `_merge_core`, keeping the per-lane credit planes instead of
+    collapsing them to flags.  Lane i is credited exactly the bits it is
+    first to set — not in `agg_*` (earlier batches) and not contributed by
+    an earlier lane of this batch.  Excluded lanes (timeouts, overlay-full)
+    contribute and receive nothing, the batch merge's revocation rule.
+
+    Returns (credit_cov [L, Wc], credit_edge [L, We], agg_cov', agg_edge');
+    OR-ing the credits of a whole sweep reproduces the aggregate delta.
+    Words are int32 holding u32 bits (`&`, `|`, `~` act on the bits)."""
+    inc = include[:, None]
+    cov_in = torch.where(inc, cov, torch.zeros_like(cov))
+    edge_in = torch.where(inc, edge, torch.zeros_like(edge))
+    cum_cov, before_cov = _prefix_scan(cov_in, agg_cov)
+    cum_edge, before_edge = _prefix_scan(edge_in, agg_edge)
+    return (cov_in & ~before_cov, edge_in & ~before_edge,
+            agg_cov | cum_cov[-1], agg_edge | cum_edge[-1])
