@@ -102,8 +102,8 @@ Phases (each prints one line; any failure exits non-zero):
      demo_spin on the card and on the CPU: equal results
  18. demo_spin deep, bench.py's chip workload (1024 lanes, max_len 4, the
      native engine behind bench's spin-count cap, --fused-k 32) at limit
-     500,000: a warm-up batch with K1 rounds 8,000-8,500 traced by
-     torch.profiler, then unprofiled batches for 30 s; execs/s,
+     250,000: a warm-up batch with K1 rounds 4,000-4,250 traced by
+     torch.profiler, then unprofiled batches for 20 s; execs/s,
      instructions/s, timeout fraction, K1 launches per batch and per
      second, K1's and the resume legs' shares of the wall, the host
      share of the traced rounds against their unprofiled wall
@@ -174,10 +174,35 @@ Phases (each prints one line; any failure exits non-zero):
      processes, on the CPU, on the 96 largest files and triage_smoke's
      crasher: equal printed lines, kept digests, minimized bytes and
      captures)
+ 27. the distributed main path: the port's `master --name demo_tlv --runs
+     16384 --seed 5 --max_len 96 --store DIR --telemetry-dir DIR` in a
+     subprocess (no device work) over a unix socket serves a 4096-lane
+     `fuzz --mux --fused-step on --limit 20000 --seed 5` node on the card,
+     in this process through `cli.fuzz` (K1's counts zeroed just before
+     and read just after): K1 launched in the node's rounds, the node
+     served every testcase the master counted (16384), every crash file
+     is named by its digest, coverage.cov holds the master's count and
+     the node's own aggregate coverage, `fleet fsck --store` is clean and
+     `status` renders the master's fleet view; execs/s (the master's
+     testcases over the node's wall), rounds, K1 launches per round, the
+     node's spans (wire-recv, execute, harvest, wire-send, restore), the
+     master's intake and serve seconds, the coverage bytes on the delta
+     wire against whole sets, the per-lane device reads per round
+     (coverage rows, crash buckets) and their seconds, the device peak
+ 28. a 64-lane mux node against a fresh 256-run master, on the card and
+     on the CPU, with the delta wire and with --no-cov-delta: equal count
+     lines (without the clock fields), outputs/, crashes/ and coverage.cov
+     (addresses and the cursor's table and words, without the node's
+     random client id)
+ 29. phase 27's node under `chaos_dialing` against a master of 8192 (and
+     testcases of at most 32 bytes): a scripted reset of its first reply
+     fires once, the node reconnects (dist.retries >= 1), the master
+     reclaims the batch in flight (dist.reclaimed >= 1) and counts every
+     testcase once, and outputs/ stays content-addressed
 
 Phase 8 fails unless its host mutator is the native engine (the one the
 reference CLI picks).  Every phase always runs, at the sizes above.
-Phases 6, 9, 11, 14 and 17 and the comparisons of phases 20-26 run
+Phases 6, 9, 11, 14, 17 and 28 and the comparisons of phases 20-26 run
 last, after the timed phases: their CPU sides run in worker processes started
 together (spawned, and joined before the script ends) while this process
 runs their card sides.  The line before the kernels' JSON record gives
@@ -294,9 +319,9 @@ TARGET_SEEDS = {"demo_maze": [b"aaaa"],
                 "demo_fs": [b"HELLOWORLD123456"]}
 # phase 18: bench.py's deep workload, its limit cut from 10M
 SPIN_LANES = 1024
-SPIN_LIMIT = 500_000
-SPIN_SECONDS = 30.0
-SPIN_WINDOW = (8_000, 8_500)           # K1 rounds traced for the host share
+SPIN_LIMIT = 250_000
+SPIN_SECONDS = 20.0
+SPIN_WINDOW = (4_000, 4_250)           # K1 rounds traced for the host share
 SPIN_SMALL_LIMIT = 500                 # phase 17's 64-lane demo_spin
 TERMINAL = {"OK", "CRASH", "TIMEDOUT", "PAGE_FAULT", "OVERLAY_FULL",
             "CR3_CHANGE", "DIVIDE_ERROR", "HARD_ERROR"}
@@ -3242,13 +3267,360 @@ def phase_triage_card_vs_cpu(cpu, keep: Path, vbreak_input: bytes) -> None:
           f"{cpu_s[1]:.1f} s in two worker processes)")
 
 
+# ---------------------------------------------------------------------------
+# phases 27-29: the master/client plane, a mux node on the card
+# ---------------------------------------------------------------------------
+
+NODE_RUNS = 16384               # phase 27's master budget
+CHAOS_RUNS = 8192               # phase 29's
+CHAOS_MAX_LEN = 32              # phase 29's testcases: a work frame of
+                                # 4096 fits one socket send buffer
+TWIN_RUNS = 256                 # phase 28's, at TWIN_LANES
+MASTER = ["master", "--name", "demo_tlv", "--seed", "5"]
+NODE = ["fuzz", "--name", "demo_tlv", "--mux", "--fused-step", "on",
+        "--limit", "20000", "--seed", "5"]
+NODE_SPANS = ("wire-recv", "execute", "harvest", "wire-send", "restore",
+              "execute/insert", "execute/fused-step", "execute/device-step",
+              "execute/service-decode", "execute/cov-readback")
+
+
+def start_master(root: Path, runs: int, max_len: int = 96) -> tuple:
+    """The port's `master` CLI in a subprocess (no device work) over a
+    unix socket under `root`, with its target dir, content-addressed
+    store and telemetry dir there too.  Returns (address, process)."""
+    root.mkdir(parents=True)
+    addr = f"unix://{root}/m.sock"
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "wtf_tpu_torch", *MASTER, "--runs",
+         str(runs), "--max_len", str(max_len), "--target", str(root / "t"),
+         "--address", addr,
+         "--store", str(root / "store"), "--telemetry-dir",
+         str(root / "telem")],
+        cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    # a node dials for 10 s; a cold interpreter can take longer than that
+    # to import torch and listen, so wait for the socket to appear
+    deadline = time.monotonic() + 120
+    while not (root / "m.sock").exists():
+        if proc.poll() is not None or time.monotonic() > deadline:
+            proc.kill()
+            fail(f"master never listened: {proc.communicate()[1][-2000:]}")
+        time.sleep(0.05)
+    return addr, proc
+
+
+def finish_master(root: Path, proc) -> dict:
+    """Wait for a master; its rc, final count line (without the clock
+    fields), run-end metrics, coverage.cov (each node's random client id
+    left out), and the names in outputs/ and crashes/."""
+    import re
+
+    from wtf_tpu_torch.telemetry import read_events
+
+    try:
+        out, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    check(proc.returncode in (0, 2), f"master failed: {err[-2000:]}")
+    counts = [ln for ln in out.splitlines() if ln.startswith("#")]
+    check(bool(counts), f"master printed no count line: {out[-500:]}")
+    end = [e for e in read_events(root / "telem" / "events.jsonl")
+           if e["type"] == "run-end"]
+    check(bool(end), "master: no run-end record")
+    doc = json.loads((root / "t" / "coverage.cov").read_text())
+    target = root / "t"
+    return {"rc": proc.returncode,
+            "line": re.sub(r" (exec/s|lastcov|uptime): \S+", "",
+                           counts[-1].strip()),
+            "metrics": end[-1]["metrics"],
+            "addresses": doc["addresses"],
+            "cursors": sorted((c["table"], c["words"])
+                              for c in doc.get("cursors", {}).values()),
+            "outputs": sorted(p.name for p in (target / "outputs").iterdir())
+            if (target / "outputs").is_dir() else [],
+            "crashes": sorted(p.name for p in (target / "crashes").iterdir())
+            if (target / "crashes").is_dir() else []}
+
+
+def run_node(addr: str, lanes: int, device: str, extra: tuple = ()):
+    """`fuzz --mux` through the port's CLI (`cli.fuzz`) in this process,
+    with K1's and K2's counts zeroed just before and read just after.
+    Returns (node, wall to the card's last work, launches)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from wtf_tpu_torch import cli
+    from wtf_tpu_torch.interp import pstep
+    from wtf_tpu_torch.telemetry import Registry
+
+    a = cli.build_parser().parse_args(
+        NODE + ["--lanes", str(lanes), "--device", device, "--address",
+                addr, *extra])
+    for key in pstep.LAUNCHES:
+        pstep.LAUNCHES[key] = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        node = cli.fuzz(a, Registry())
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return node, time.perf_counter() - t0, dict(pstep.LAUNCHES)
+
+
+class LaneReads:
+    """Counts and times the node's per-lane device reads: a lane's
+    coverage words (the delta wire's `lane_cov_words`) and a crashing
+    lane's bucket (`triage.bucket.bucket_of`)."""
+
+    def __init__(self):
+        self.n = {"cov": 0, "bucket": 0}
+        self.s = {"cov": 0.0, "bucket": 0.0}
+
+    def _timed(self, key, fn):
+        def wrapped(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.s[key] += time.perf_counter() - t0
+                self.n[key] += 1
+        return wrapped
+
+    def __enter__(self):
+        from wtf_tpu_torch.backend.gpu import GpuBackend
+        from wtf_tpu_torch.triage import bucket
+
+        self._saved = (GpuBackend.lane_cov_words, bucket.bucket_of)
+        GpuBackend.lane_cov_words = self._timed("cov", self._saved[0])
+        bucket.bucket_of = self._timed("bucket", self._saved[1])
+        return self
+
+    def __exit__(self, *exc):
+        from wtf_tpu_torch.backend.gpu import GpuBackend
+        from wtf_tpu_torch.triage import bucket
+
+        GpuBackend.lane_cov_words, bucket.bucket_of = self._saved
+
+
+def cli_lines(argv: list) -> tuple:
+    """(rc, printed lines) of one port CLI command in this process."""
+    import contextlib
+    import io
+
+    from wtf_tpu_torch import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    return rc, out.getvalue().splitlines()
+
+
+def phase_node(k1: dict, k2: dict, record: dict, work: Path) -> None:
+    """Phase 27: the distributed main path.  A port `master --runs 16384`
+    in a subprocess serves a 4096-lane `fuzz --mux --fused-step on` node
+    on the card (this process); K1 must launch in the node's rounds, the
+    node must serve every testcase the master counts, the crash files
+    must be named by their digests, coverage.cov must hold the node's own
+    aggregate coverage, the store must fsck clean and `status` must
+    render the master's fleet view."""
+    import torch
+
+    from wtf_tpu_torch.utils.covfiles import parse_cov_files
+    from wtf_tpu_torch.utils.hashing import hex_digest
+
+    root = work / "phase27"
+    addr, master = start_master(root, NODE_RUNS)
+    torch.cuda.reset_peak_memory_stats()
+    with LaneReads() as reads:
+        node, wall, launches = run_node(addr, LANES, "cuda")
+    peak = torch.cuda.max_memory_allocated()
+    m = finish_master(root, master)
+    backend, reg = node.backend, node.registry
+    served = m["metrics"].get("campaign.testcases", 0)
+    check(launches["fused_step"] > 0, f"phase 27: K1 never launched in the "
+          f"node's rounds: {launches}")
+    check(served == NODE_RUNS and node.runs == served,
+          f"phase 27: the master counted {served} testcases, the node "
+          f"served {node.runs}, the budget is {NODE_RUNS}")
+    counts = backend.status_counts
+    check(set(counts) <= TERMINAL and sum(counts.values()) == node.runs,
+          f"phase 27: non-terminal lanes: {counts}")
+    crashes = sorted((root / "t" / "crashes").iterdir())
+    check(bool(crashes) and all(hex_digest(p.read_bytes()) == p.name
+                                for p in crashes),
+          "phase 27: a crash file not named by its digest")
+    addresses = set(m["addresses"])
+    check(parse_cov_files(root / "t") == addresses
+          and f" cov: {len(addresses)} " in m["line"]
+          and addresses == backend.aggregate_coverage(),
+          f"phase 27: coverage.cov ({len(addresses)} addresses) is not the "
+          f"master's count line {m['line']!r} or the node's aggregate "
+          f"({len(backend.aggregate_coverage())})")
+    rc, fsck = cli_lines(["fleet", "fsck", "--store", str(root / "store")])
+    check(rc == 0, f"phase 27: the store does not fsck clean: {fsck}")
+    rc, status = cli_lines(["status", str(root / "telem")])
+    check(rc == 0 and status and status[0].startswith("fleet: 1 node(s)"),
+          f"phase 27: status did not render the fleet: {status}")
+    rounds = node.rounds
+    spans = reg.spans
+    node_spans = {p: spans.seconds(p) for p in NODE_SPANS}
+    msp = m["metrics"].get("phase.seconds", {})
+    delta = reg.counter("dist.cov_bytes_delta").value
+    bitmap = reg.counter("dist.cov_bytes_bitmap").value
+    print(f"phase 27: master (subprocess, {m['line']!r}) + a {LANES}-lane "
+          f"`fuzz --mux --fused-step on` node on the card: {node.runs} "
+          f"testcases in {wall:.2f} s = {served / wall:.1f} execs/s, "
+          f"{rounds} rounds, K1 launches {launches['fused_step']} "
+          f"({launches['fused_step'] / max(rounds, 1):.1f} per round), K2 "
+          f"{launches['probe']}; node spans "
+          f"{ {k: round(v, 3) for k, v in node_spans.items() if v} }; the "
+          f"master's intake {msp.get('intake', 0.0):.3f} s "
+          f"({msp.get('intake', 0.0) / max(rounds, 1) * 1e3:.1f} ms per "
+          f"round), serve {msp.get('serve', 0.0):.3f} s; coverage bytes on "
+          f"the wire {delta} against {bitmap} for whole sets "
+          f"({bitmap / max(delta, 1):.1f}x smaller); per-lane reads "
+          f"{reads.n['cov'] / max(rounds, 1):.1f} coverage rows "
+          f"({reads.s['cov']:.3f} s in all) and "
+          f"{reads.n['bucket'] / max(rounds, 1):.1f} crash buckets "
+          f"({reads.s['bucket']:.3f} s) per round; "
+          f"{len(crashes)} crash files by digest, coverage.cov == the "
+          f"node's aggregate ({len(addresses)}), {fsck[-1]!r}, status "
+          f"{status[0]!r}; device peak {peak}; statuses {counts}")
+    k1["launches"] += launches["fused_step"]
+    k1["launches_by_path"]["demo_tlv fuzz --mux node"] = \
+        launches["fused_step"]
+    k2["launches_by_path"]["demo_tlv fuzz --mux node"] = launches["probe"]
+    record["node"] = {
+        "testcases": served, "wall_s": wall, "execs_per_s": served / wall,
+        "rounds": rounds, "k1_launches": launches["fused_step"],
+        "k2_launches": launches["probe"], "node_spans": node_spans,
+        "master_spans": msp, "master_line": m["line"],
+        "cov_bytes_delta": delta, "cov_bytes_bitmap": bitmap,
+        "lane_reads": {"n": reads.n, "s": reads.s}, "peak_bytes": peak,
+        "statuses": counts, "crash_files": len(crashes),
+        "coverage": len(addresses), "telem_sent":
+            reg.counter("dist.telem_sent").value}
+    del node, backend
+    torch.cuda.empty_cache()
+
+
+def node_twin(device: str, delta: bool) -> tuple:
+    """A TWIN_LANES-lane mux node on `device` against a fresh master of
+    TWIN_RUNS (phase 28), with the delta wire or `--no-cov-delta`.
+    Returns (what must equal between card and CPU, seconds)."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp) / "twin"
+        addr, master = start_master(root, TWIN_RUNS)
+        node, _, _ = run_node(addr, TWIN_LANES, device,
+                              () if delta else ("--no-cov-delta",))
+        m = finish_master(root, master)
+        out = (node.runs, m["line"], m["outputs"], m["crashes"],
+               m["addresses"], m["cursors"])
+    return out, time.perf_counter() - t0
+
+
+def phase_node_card_vs_cpu(cpu) -> None:
+    """Phase 28: the same seeded master serves a node on the card and one
+    on the CPU (a worker process), each with a fresh master: equal count
+    lines, outputs/, crashes/ and coverage.cov, on both wires."""
+    card_s, cpu_s, seen = [], [], {}
+    for delta in (True, False):
+        got, seconds = node_twin("cuda", delta)
+        want, cpu_seconds = cpu[f"node delta={delta}"].result()
+        card_s.append(seconds)
+        cpu_s.append(cpu_seconds)
+        check(got == want, f"phase 28: the {TWIN_LANES}-lane node differs "
+              f"between card and cpu (delta={delta}): {got[1]!r} vs "
+              f"{want[1]!r}")
+        check(got[0] == TWIN_RUNS and got[2] and (
+            len(got[5]) == (1 if delta else 0)),
+              f"phase 28: {got[0]} served, {len(got[5])} cursors")
+        seen[delta] = got
+    check(seen[True][1:5] == seen[False][1:5],
+          "phase 28: the delta and whole-set wires disagree")
+    print(f"phase 28: {TWIN_LANES}-lane mux node, master --runs "
+          f"{TWIN_RUNS}: card == cpu on the count line "
+          f"({seen[True][1]!r}), {len(seen[True][2])} outputs, "
+          f"{len(seen[True][3])} crashes and coverage.cov's "
+          f"{len(seen[True][4])} addresses and cursor, with the delta wire "
+          f"and with --no-cov-delta (card {card_s[0]:.1f} + "
+          f"{card_s[1]:.1f} s, cpu {cpu_s[0]:.1f} + {cpu_s[1]:.1f} s in "
+          f"worker processes)")
+
+
+def phase_node_chaos(k1: dict, record: dict, work: Path) -> None:
+    """Phase 29: the 4096-lane mux node under a scripted socket reset
+    against a master of 8192: the reset fires once, on the node's first
+    reply, the node reconnects, the master reclaims the in-flight batch
+    and counts every testcase once, and outputs/ stays content-addressed.
+
+    A ChaosSocket counts operations (each sendall or recv call is one),
+    and a large frame is read in as many recv calls as the socket hands
+    out, so the plan first delays the node's read of the first work
+    frame's header (op 3, after the hello and the two reads of the
+    cursor frame) until the master has queued the whole frame; with
+    testcases of at most CHAOS_MAX_LEN bytes a 4096-testcase frame fits
+    one socket send buffer, the body comes in one read (op 4), and op 5
+    is the first reply's send: the reset always lands with the batch in
+    flight on the master."""
+    import torch
+
+    from wtf_tpu_torch.testing.faultinject import (
+        DELAY, FaultPlan, RESET, chaos_dialing,
+    )
+    from wtf_tpu_torch.utils.hashing import hex_digest
+
+    root = work / "phase29"
+    addr, master = start_master(root, CHAOS_RUNS, CHAOS_MAX_LEN)
+    plan = FaultPlan([{3: DELAY, 5: RESET}, {}, {}], delay_secs=2.0)
+    with chaos_dialing(plan):
+        node, wall, launches = run_node(addr, LANES, "cuda")
+    m = finish_master(root, master)
+    served = m["metrics"].get("campaign.testcases", 0)
+    retries = node.registry.counter("dist.retries").value
+    reclaimed = m["metrics"].get("dist.reclaimed", 0)
+    check(plan.fired == [(DELAY, "recv"), (RESET, "send")],
+          f"phase 29: fired {plan.fired}, not the delayed read and one "
+          f"reset of the first reply")
+    check(served == CHAOS_RUNS, f"phase 29: the master counted {served} "
+          f"testcases of {CHAOS_RUNS}")
+    check(retries >= 1 and reclaimed >= 1,
+          f"phase 29: retries {retries}, reclaimed {reclaimed}")
+    outputs = sorted((root / "t" / "outputs").iterdir())
+    check(bool(outputs) and all(hex_digest(p.read_bytes()) == p.name
+                                for p in outputs),
+          "phase 29: outputs/ is not content-addressed")
+    check(launches["fused_step"] > 0, "phase 29: K1 never launched")
+    print(f"phase 29: the {LANES}-lane mux node under a scripted reset of "
+          f"its first reply ({plan.fired}) against master --runs "
+          f"{CHAOS_RUNS} --max_len {CHAOS_MAX_LEN}: "
+          f"{m['line']!r}, zero lost; node retries {retries}, reclaimed "
+          f"{reclaimed}, executed {node.runs} in {wall:.2f} s, {node.rounds} "
+          f"rounds, K1 launches {launches['fused_step']}; {len(outputs)} "
+          f"outputs content-addressed")
+    record["node_chaos"] = {"fired": plan.fired, "testcases": served,
+                            "executed": node.runs, "retries": retries,
+                            "reclaimed": reclaimed, "wall_s": wall,
+                            "k1_launches": launches["fused_step"]}
+    del node
+    torch.cuda.empty_cache()
+
+
 def start_cpu_references(pool, keep: Path, vbreak_input: bytes) -> dict:
-    """The CPU sides of phases 6, 9, 11, 14, 17, 20, 21-23 and 24-26,
+    """The CPU sides of phases 6, 9, 11, 14, 17, 20, 21-23, 24-26 and 28,
     started together in worker processes once the card's timed phases
     are done."""
     import os
 
-    jobs = {"demo_tlv": (small_campaign, "demo_tlv", "cpu"),
+    # the node twins first: each also waits on a master subprocess, and
+    # they are the longest of the jobs
+    jobs = {"node delta=True": (node_twin, "cpu", True),
+            "node delta=False": (node_twin, "cpu", False),
+            "demo_tlv": (small_campaign, "demo_tlv", "cpu"),
             "demo_tlv window": (small_campaign, "demo_tlv", "cpu", 20000,
                                 tuple(WINDOW)),
             "demo_tlv window dd": (small_campaign, "demo_tlv", "cpu", 20000,
@@ -3336,8 +3708,11 @@ def main(argv=None) -> int:
     vbreak_input = phase_triage(k1, k2, record, keep,
                                 Path(work.name) / "triage")
     stamp("24-26")
-    # the CPU references of phases 6, 9, 11, 14, 17, 20, 21-23 and 24-26
-    # run in worker processes, after every timed phase, while this
+    phase_node(k1, k2, record, Path(work.name))
+    phase_node_chaos(k1, record, Path(work.name))
+    stamp("27-29")
+    # the CPU references of phases 6, 9, 11, 14, 17, 20, 21-23, 24-26 and
+    # 28 run in worker processes, after every timed phase, while this
     # process runs their card sides
     with ProcessPoolExecutor(
             max_workers=12, mp_context=multiprocessing.get_context(
@@ -3351,6 +3726,7 @@ def main(argv=None) -> int:
         phase_fp_loop_card_vs_cpu(cpu, fp_card)
         phase_tier_card_vs_cpu(cpu, card_window)
         phase_triage_card_vs_cpu(cpu, keep, vbreak_input)
+        phase_node_card_vs_cpu(cpu)
     work.cleanup()
     stamp("twins")
     record["elapsed_s"] = elapsed

@@ -466,6 +466,15 @@ class GpuBackend(Backend):
         words = self.runner.machine.cov[lane].cpu().numpy().view(np.uint32)
         return set(self.runner.cache.rips_of_bits(words))
 
+    def lane_cov_words(self, lane: int) -> np.ndarray:
+        """This lane's coverage bitmap as host uint32 words (valid after
+        run_batch, before restore), with no address decode: what the mux
+        node's delta frames ship (wtf_tpu_torch/fleet/delta
+        `BitmapDeltaCursor`), since bit i is decode-cache entry i.  Only
+        the lane's row leaves the device, as a copy."""
+        return (self.runner.machine.cov[lane].to("cpu", copy=True)
+                .numpy().view(np.uint32))
+
     def lane_result_detail(self, lane: int) -> str:
         return self.runner.lane_errors.get(lane, "")
 

@@ -1,8 +1,9 @@
-"""CLI entry point: `python -m wtf_tpu_torch {run|campaign|triage|snapshot}`.
+"""CLI entry point: `python -m wtf_tpu_torch {run|campaign|triage|fuzz|master|
+fleet|status|snapshot}`.
 
-The counterpart of wtf_tpu/cli.py for the single-device subcommands, with
-the JAX package's flag names and meanings for the subset it supports plus
-`--device`:
+The counterpart of wtf_tpu/cli.py for the single-device subcommands and the
+master/client plane, with the JAX package's flag names and meanings for the
+subset it supports plus `--device`:
 
   run       replay an input file or directory on the device batch (lane 0),
             optionally writing a rip/cov/tenet trace through the oracle;
@@ -16,18 +17,30 @@ the JAX package's flag names and meanings for the subset it supports plus
   triage    batched crash triage on the device batch (wtf_tpu_torch/triage):
             minimize (crash bisection), distill (exact-attribution corpus
             minset), vbreak (virtual-breakpoint replay)
+  fuzz      node loop: dial the master, execute, report (wtf_tpu_torch/dist):
+            `--backend gpu` (default) runs one device batch per round,
+            one connection per lane or, with `--mux`, one for the whole
+            batch; `--backend emu` one testcase at a time on the oracle
+  master    testcase server: corpus, mutation, coverage aggregation,
+            crash intake (no device work; `--runs 0` = minset)
+  fleet     `soak` (simulated clients over the real wire) and `fsck` (verify
+            and repair a content-addressed store)
+  status    render the status.json a master (or campaign) keeps under
+            --telemetry-dir
   snapshot  convert a snapshot between mem.npz and a Windows crash dump
             (mem.dmp, bitmap or full)
 
-Every subcommand but `snapshot` runs on a CUDA device by default (`--device
-cuda`) and raises when there is none; `--device cpu` runs the plain
-PyTorch versions of the kernels on the CPU.  `triage vbreak --backend emu`
-replays on the single-step oracle instead (`--backend gpu`, the default,
-is the device batch).  `--fused-step on|auto` drives the fused step
-kernel (interp/pstep.py); on a CUDA device both raise when it cannot be
-built.  `--device-decode` services decode-cache misses on the device
-(interp/devdec.py).  `--state DIR` loads the snapshot from DIR (mem.npz or
-mem.dmp, regs.json, symbol-store.json) instead of the target's factory;
+`run`, `campaign`, `triage` and `fuzz` run on a CUDA device by default
+(`--device cuda`) and raise when there is none; `--device cpu` runs the
+plain PyTorch versions of the kernels on the CPU.  `master`, `fleet` and
+`status` do no device work, as in the JAX package.  `triage vbreak
+--backend emu` and `fuzz --backend emu` run on the single-step oracle
+instead (`--backend gpu`, the default, is the device batch).
+`--fused-step on|auto` drives the fused step kernel (interp/pstep.py); on
+a CUDA device both raise when it cannot be built.  `--device-decode`
+services decode-cache misses on the device (interp/devdec.py).  `--state
+DIR` loads the snapshot from DIR (mem.npz or mem.dmp, regs.json,
+symbol-store.json) instead of the target's factory;
 `--inputs/--outputs/--crashes` override the dirs under `--target`.
 `--supervise` / `--dispatch-timeout` put every device dispatch under the
 supervisor (wtf_tpu_torch/supervise), and `campaign --checkpoint-every` /
@@ -46,11 +59,12 @@ import importlib
 import logging
 import random
 import sys
+import time
 from contextlib import contextmanager
 from pathlib import Path
 from typing import List, Optional
 
-from wtf_tpu_torch.config import TargetPaths
+from wtf_tpu_torch.config import DEFAULT_ADDRESS, TargetPaths
 from wtf_tpu_torch.core.results import Crash
 from wtf_tpu_torch.harness.targets import Targets, load_builtin_targets
 from wtf_tpu_torch.telemetry import NULL, Registry, open_event_log
@@ -59,6 +73,12 @@ TRACE_TYPES = ("rip", "cov", "tenet")
 
 
 def _add_common(p: argparse.ArgumentParser) -> None:
+    _add_target_args(p)
+    _add_engine_args(p)
+
+
+def _add_target_args(p: argparse.ArgumentParser) -> None:
+    """Target selection, its dirs and the telemetry outputs."""
     p.add_argument("--name", required=True, help="registered target name")
     p.add_argument("--target-module", action="append", default=[],
                    help="extra python module(s) to import for target "
@@ -82,6 +102,10 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                         "(chrome://tracing / Perfetto JSON) of every span, "
                         "plus instant marks for point events (crash/"
                         "new-coverage/checkpoint/recovery)")
+
+
+def _add_engine_args(p: argparse.ArgumentParser) -> None:
+    """The device and its execution engine."""
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a CUDA device), "
                         "cuda:N, or cpu")
@@ -255,6 +279,90 @@ def build_parser() -> argparse.ArgumentParser:
     tvb.add_argument("--limit", type=int, default=0)
     tvb.add_argument("--lanes", type=int, default=64)
 
+    fuzz = sub.add_parser("fuzz", help="fuzz node (dials the master)")
+    _add_common(fuzz)
+    fuzz.add_argument("--backend", choices=("gpu", "emu"), default="gpu",
+                      help="gpu = one device batch per round on --device "
+                           "(default); emu = the single-step oracle, one "
+                           "testcase at a time")
+    fuzz.add_argument("--limit", type=int, default=0)
+    fuzz.add_argument("--address", default=DEFAULT_ADDRESS)
+    fuzz.add_argument("--seed", type=int, default=0)
+    fuzz.add_argument("--lanes", type=int, default=64)
+    fuzz.add_argument("--mux", action="store_true",
+                      help="one multiplexed master connection for the whole"
+                           " lane batch instead of one per lane (scales a"
+                           " wide node past the master's fd budget)")
+    fuzz.add_argument("--max-retry-secs", type=float, default=60.0,
+                      help="survive mid-campaign socket loss: reconnect "
+                           "with jittered exponential backoff for this "
+                           "long before giving up (0 = reference "
+                           "behavior: first loss ends the node)")
+    fuzz.add_argument("--wire-v1", action="store_true",
+                      help="speak the legacy (pre-WTF2) hello to a "
+                           "not-yet-upgraded master: raw downstream "
+                           "frames, no BYE, and therefore no reconnect "
+                           "(rolling-upgrade escape hatch)")
+    fuzz.add_argument("--no-cov-delta", action="store_true",
+                      help="ship whole coverage sets per result (the "
+                           "pre-fleet WTF2 wire) instead of streaming "
+                           "coverage deltas against the master's ack "
+                           "cursor — the escape hatch for masters that "
+                           "predate WTF3 (--wire-v1 implies it)")
+
+    master = sub.add_parser("master", help="master node (serves testcases)")
+    _add_target_args(master)
+    master.add_argument("--address", default=DEFAULT_ADDRESS)
+    master.add_argument("--runs", type=int, default=0,
+                        help="mutation budget; 0 = minset over inputs/")
+    master.add_argument("--max_len", type=int, default=1024 * 1024)
+    master.add_argument("--seed", type=int, default=0)
+    master.add_argument("--reclaim-timeout", type=float, default=0.0,
+                        help="reclaim in-flight testcases from a node "
+                             "silent this long (presumed dead); 0 = off. "
+                             "Reclaim-on-disconnect is always on; SIGTERM "
+                             "drains gracefully either way")
+    master.add_argument("--store", type=Path, default=None, metavar="DIR",
+                        help="content-addressed corpus/crash store root "
+                             "(wtf_tpu_torch/fleet/store): digest-named "
+                             "blobs in sharded fanout dirs with a manifest "
+                             "journal; outputs/ and crashes/ become flat "
+                             "views of it")
+
+    fleet = sub.add_parser(
+        "fleet", help="fleet tier (wtf_tpu_torch/fleet): the corpus/crash "
+                      "store and the thousand-client soak")
+    fsub = fleet.add_subparsers(dest="fleet_cmd", required=True)
+    fso = fsub.add_parser(
+        "soak", help="the chaos soak (wtf_tpu_torch/fleet/soak): N "
+                     "simulated clients over the real wire with injected "
+                     "resets/reclaims/frame drops; zero-lost + "
+                     "serial-replay-parity + delta-ratio assertions")
+    fso.add_argument("--clients", type=int, default=256)
+    fso.add_argument("--runs-per-client", type=int, default=60)
+    fso.add_argument("--seed", type=int, default=0xF1EE7)
+    fso.add_argument("--threads", type=int, default=16)
+    fso.add_argument("--min-ratio", type=float, default=10.0)
+    ffs = fsub.add_parser(
+        "fsck", help="verify (and with --repair, recover) a fleet "
+                     "store: quarantine torn blobs, drop journal "
+                     "entries whose blob vanished, journal orphans")
+    ffs.add_argument("--store", type=Path, required=True, metavar="DIR")
+    ffs.add_argument("--namespace", default="default")
+    ffs.add_argument("--repair", action="store_true")
+
+    status = sub.add_parser(
+        "status", help="live campaign/fleet status: render the "
+                       "atomically-refreshed status.json a running "
+                       "campaign or master keeps under --telemetry-dir")
+    status.add_argument("dir", type=Path,
+                        help="the telemetry dir holding status.json")
+    status.add_argument("--json", action="store_true",
+                        help="print the raw status document")
+    status.add_argument("--watch", type=float, default=0.0, metavar="SECS",
+                        help="re-render every SECS seconds until ^C "
+                             "(0 = render once)")
+
     snap = sub.add_parser(
         "snapshot", help="convert snapshots between formats")
     snap.add_argument("--state", type=Path, required=True,
@@ -324,10 +432,12 @@ def _telemetry_for(args):
         events.close()
 
 
-def build_backend(target, args, registry: Registry, events=NULL):
-    """The backend of one invocation, initialized and target-armed: the
-    GpuBackend on --device, or the single-step oracle for `--backend
-    emu`.  Returns (backend, paths)."""
+def build_backend(target, args, registry: Registry, events=NULL,
+                  init_target: bool = True):
+    """The backend of one invocation, initialized and (unless
+    `init_target` is False: the fuzz nodes arm the target themselves)
+    target-armed: the GpuBackend on --device, or the single-step oracle
+    for `--backend emu`.  Returns (backend, paths)."""
     from wtf_tpu_torch.backend.gpu import GpuBackend
     from wtf_tpu_torch.snapshot.loader import load_snapshot
 
@@ -354,7 +464,8 @@ def build_backend(target, args, registry: Registry, events=NULL):
                              **_supervise_kwargs(args))
     with registry.spans.span("init"):
         backend.initialize()
-    target.init(backend)
+    if init_target:
+        target.init(backend)
     return backend, paths
 
 
@@ -713,6 +824,244 @@ def _triage_vbreak(args, paths, backend, target, registry, events) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# the master/client plane (wtf_tpu/cli.py cmd_fuzz, cmd_master, cmd_fleet,
+# cmd_status)
+# ---------------------------------------------------------------------------
+
+def fuzz(args, registry: Optional[Registry] = None, events=NULL):
+    """`fuzz`: build the backend and serve the master at --address until it
+    says BYE (or stays gone past --max-retry-secs).  Returns the node
+    (`BatchClient` for --backend gpu, `Client` for emu), whose `runs`
+    and `rounds` say what it served."""
+    from wtf_tpu_torch.dist.client import BatchClient, Client
+
+    target = _lookup_target(args)
+    registry = registry if registry is not None else Registry()
+    backend, _ = build_backend(target, args, registry, events,
+                               init_target=False)
+    kwargs = dict(registry=registry, events=events, print_stats=True,
+                  max_retry_secs=args.max_retry_secs,
+                  wire_v1=args.wire_v1, cov_delta=not args.no_cov_delta)
+    if args.backend == "gpu":
+        node = BatchClient(backend, target, args.address, mux=args.mux,
+                           **kwargs)
+    else:
+        node = Client(backend, target, args.address, **kwargs)
+    node.run()
+    return node
+
+
+def cmd_fuzz(args) -> int:
+    with _telemetry_for(args) as (registry, events):
+        node = fuzz(args, registry, events)
+    print(f"node served {node.runs} testcases")
+    return 0
+
+
+def master(args, registry: Optional[Registry] = None, events=NULL):
+    """`master`: the testcase server over the target's host mutator
+    (`mutator_for`, as the JAX CLI's `_mutator_for`).  It builds no
+    backend and does no device work.  Runs until the budget is served
+    (or a SIGTERM drain) and returns the Server."""
+    from wtf_tpu_torch.dist.server import Server
+    from wtf_tpu_torch.fuzz.corpus import Corpus
+
+    target = _lookup_target(args)
+    paths = _paths_from(args)
+    registry = registry if registry is not None else Registry()
+    rng = random.Random(args.seed or None)
+    store = None
+    if args.store:
+        from wtf_tpu_torch.fleet.store import FleetStore
+
+        store = FleetStore(args.store, registry=registry, events=events)
+    corpus = Corpus(outputs_dir=paths.outputs, rng=rng, store=store)
+    coverage_path = (Path(paths.target) / "coverage.cov"
+                     if paths.target else None)
+    server = Server(args.address, mutator_for(target, rng, args.max_len),
+                    corpus, inputs_dir=paths.inputs,
+                    crashes_dir=paths.crashes, runs=args.runs,
+                    max_len=args.max_len, print_stats=True,
+                    coverage_path=coverage_path, registry=registry,
+                    events=events, reclaim_timeout=args.reclaim_timeout,
+                    store=store, telemetry_dir=args.telemetry_dir)
+    server.run()
+    return server
+
+
+def cmd_master(args) -> int:
+    with _telemetry_for(args) as (registry, events):
+        server = master(args, registry, events)
+    print(server.stats.line(len(server.coverage), len(server.corpus), 0))
+    if server.drained:
+        # SIGTERM drain: state persisted, nodes notified — a supervisor
+        # restarting the master must read this as a clean stop
+        print("master drained (state persisted)")
+        return 0
+    return 0 if server.stats.crashes == 0 else 2
+
+
+def cmd_fleet(args) -> int:
+    """`fleet {soak,fsck}` — the fleet tier (wtf_tpu_torch/fleet)."""
+    import json
+
+    if args.fleet_cmd == "soak":
+        import tempfile
+
+        from wtf_tpu_torch.fleet.soak import run_soak
+
+        logging.getLogger("wtf_tpu_torch").setLevel(logging.ERROR)
+        with tempfile.TemporaryDirectory() as tmp:
+            report = run_soak(tmp, clients=args.clients,
+                              runs_per_client=args.runs_per_client,
+                              seed=args.seed, threads=args.threads,
+                              min_ratio=args.min_ratio)
+        print(json.dumps(report, indent=1))
+        print(f"fleet soak PASS ({report['clients']} clients, zero "
+              f"lost, delta {report['delta_ratio']}x smaller)")
+        return 0
+    from wtf_tpu_torch.fleet.store import FleetStore
+
+    store = FleetStore(args.store, namespace=args.namespace)
+    report = store.verify(repair=args.repair)
+    print(f"fsck {args.store}/{args.namespace}: "
+          f"{report['ok']}/{report['blobs']} blobs ok, "
+          f"{len(report['torn'])} torn, "
+          f"{len(report['missing'])} missing, "
+          f"{len(report['orphans'])} orphan(s)"
+          + (" — repaired" if args.repair else ""))
+    broken = report["torn"] or report["missing"] or report["orphans"]
+    return 0 if (args.repair or not broken) else 1
+
+
+def _derived_status_rows(metrics: dict) -> List[str]:
+    """The operator-facing derived lines shared by campaign and fleet
+    status (wtf_tpu/cli.py `_derived_status_rows`): each row appears only
+    when its subsystem actually ran, so a plain campaign renders just the
+    heartbeat line."""
+    rows: List[str] = []
+
+    def val(name, default=0):
+        v = metrics.get(name, default)
+        return v if isinstance(v, (int, float)) else default
+
+    instr = val("device.instructions")
+    fused = val("device.fused_steps")
+    if fused and instr:
+        rows.append(f"fused occupancy: {fused / instr:.1%}")
+    windows = val("megachunk.windows")
+    if windows:
+        zh = val("devdec.zero_host_windows")
+        rows.append(f"zero-host windows: {zh}/{windows} "
+                    f"({zh / windows:.0%})")
+        rounds = val("device.fused_window_rounds")
+        sweeps = val("device.fused_window_xla_steps")
+        if rounds:
+            rows.append(f"fused windows: "
+                        f"{rounds / (rounds + sweeps):.1%} of "
+                        f"{rounds + sweeps} quiesce dispatches "
+                        f"in-kernel")
+            saved = val("device.fused_window_bytes_saved")
+            if saved:
+                rows.append(f"donation: {saved / (1 << 20):.1f} MiB "
+                            f"copy-through saved "
+                            f"({saved // max(rounds, 1)} B/dispatch)")
+        prelaunched = val("megachunk.prelaunched")
+        if prelaunched:
+            rows.append(f"prelaunch: "
+                        f"{val('megachunk.prelaunch_hits')}/{prelaunched}"
+                        f" adopted, {val('megachunk.prelaunch_dropped')}"
+                        f" dropped")
+    phase = metrics.get("phase.seconds") or {}
+    if isinstance(phase, dict) and phase:
+        from wtf_tpu_torch.telemetry.spans import DEVICE_SPAN_LEAVES
+
+        top = sum(s for p, s in phase.items() if "/" not in p)
+        dev = sum(s for p, s in phase.items()
+                  if "/" in p and p.split("/")[-1] in DEVICE_SPAN_LEAVES)
+        if top:
+            rows.append(f"host share: "
+                        f"{max(top - dev, 0.0) / top:.1%} of "
+                        f"accounted wall")
+    if val("supervise.dispatches"):
+        rows.append(f"supervisor: rung {val('supervise.rung')}, "
+                    f"{val('supervise.rebuilds')} rebuilds, "
+                    f"{val('supervise.quarantined_lanes')} lanes "
+                    f"quarantined")
+    delta = val("dist.cov_bytes_delta")
+    bitmap = val("dist.cov_bytes_bitmap")
+    if delta and bitmap:
+        rows.append(f"delta frames: {bitmap - delta} cov bytes saved "
+                    f"({bitmap / delta:.1f}x smaller)")
+    tenants = sorted({name.split(".")[1] for name in metrics
+                      if name.startswith("tenant.")
+                      and len(name.split(".")) >= 3})
+    for t in tenants:
+        rows.append(f"tenant {t}: "
+                    f"execs={metrics.get(f'tenant.{t}.testcases', 0) or 0}"
+                    f" newcov="
+                    f"{metrics.get(f'tenant.{t}.new_coverage', 0) or 0}"
+                    f" crashes="
+                    f"{metrics.get(f'tenant.{t}.crashes', 0) or 0}")
+    return rows
+
+
+def _render_status(doc: dict) -> None:
+    age = max(time.time() - float(doc.get("ts", 0) or 0), 0.0)
+    if doc.get("kind") == "fleet":
+        print(f"fleet: {doc.get('nodes', 0)} node(s), "
+              f"{doc.get('frames', 0)} telem frames "
+              f"({doc.get('duplicates_dropped', 0)} duplicates dropped), "
+              f"as of {age:.0f}s ago")
+        for row in doc.get("per_node", []):
+            print(f"  {row.get('node', '?')[:12]:<12} "
+                  f"seq={row.get('seq')}/e{row.get('epoch')} "
+                  f"execs={row.get('testcases')} "
+                  f"({row.get('execs_per_s')}/s) "
+                  f"crash={row.get('crashes')} "
+                  f"newcov={row.get('new_coverage')}")
+    else:
+        print(f"campaign: batch {doc.get('batches', 0)}, "
+              f"as of {age:.0f}s ago")
+        if doc.get("line"):
+            print(f"  {doc['line']}")
+    for row in _derived_status_rows(doc.get("metrics") or {}):
+        print(f"  {row}")
+
+
+def cmd_status(args) -> int:
+    """`status <dir>`: render the status.json a running campaign
+    (FuzzLoop._write_status, every heartbeat) or fleet master
+    (FleetTelemetry.write_exports, every persistence interval) refreshes
+    atomically — readers always see a complete document."""
+    import json
+
+    path = args.dir / "status.json"
+    while True:
+        try:
+            doc = json.loads(path.read_text())
+        except FileNotFoundError:
+            print(f"status: no status.json under {args.dir} — is the "
+                  f"campaign/master running with --telemetry-dir?")
+            return 1
+        except ValueError:
+            doc = None  # mid-rotation torn read: keep the last render
+        if doc is not None:
+            if args.json:
+                print(json.dumps(doc))
+            else:
+                if args.watch:
+                    print("\x1b[2J\x1b[H", end="")
+                _render_status(doc)
+        if not args.watch:
+            return 0
+        try:
+            time.sleep(args.watch)
+        except KeyboardInterrupt:
+            return 0
+
+
 def cmd_snapshot(args) -> int:
     """Format conversion: npz <-> Windows crash dump both ways."""
     import json
@@ -748,7 +1097,20 @@ def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     # the argv actually parsed — the provenance in the run-start event
     args._argv = list(argv) if argv is not None else sys.argv[1:]
+    if args.subcommand in ("fuzz", "master", "fleet"):
+        # the master/client plane reports operational events (reconnects,
+        # reclaims, drains, malformed frames) through `logging`: a
+        # message-only handler on the CURRENT stdout, scoped to this
+        # package's logger, as the JAX CLI's main does
+        handler = logging.StreamHandler(sys.stdout)
+        handler.setFormatter(logging.Formatter("%(message)s"))
+        wlog = logging.getLogger("wtf_tpu_torch")
+        wlog.handlers[:] = [handler]
+        wlog.setLevel(logging.INFO)
+        wlog.propagate = False
     return {"run": cmd_run, "campaign": cmd_campaign, "triage": cmd_triage,
+            "fuzz": cmd_fuzz, "master": cmd_master, "fleet": cmd_fleet,
+            "status": cmd_status,
             "snapshot": cmd_snapshot}[args.subcommand](args)
 
 

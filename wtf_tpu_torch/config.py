@@ -1,10 +1,13 @@
-"""Path conventions (copied from wtf_tpu/config.py `TargetPaths`)."""
+"""Path conventions and the master's default address (copied from
+wtf_tpu/config.py `TargetPaths` and `DEFAULT_ADDRESS`)."""
 
 from __future__ import annotations
 
 import dataclasses
 from pathlib import Path
 from typing import Optional
+
+DEFAULT_ADDRESS = "tcp://localhost:31337/"  # wtf.cc:79,369
 
 
 @dataclasses.dataclass

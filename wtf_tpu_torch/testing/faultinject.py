@@ -1,11 +1,14 @@
 """Deterministic chaos harness: scripted fault schedules over real seams.
 
-The counterpart of wtf_tpu/testing/faultinject.py for the device plane,
-checkpoint I/O and process death (a copy, imports rewritten; the socket
-chaos of the JAX module arrives with the master/client plane).  Every
-recovery path of the fault-tolerance tier is exercised against the code
-that ships — not mocks of it — by wrapping its seams:
+The counterpart of wtf_tpu/testing/faultinject.py (a copy, imports
+rewritten, plus `SeamFaultPlan`).  Every recovery path of the
+fault-tolerance tier is exercised against the code that ships — not mocks
+of it — by wrapping its seams:
 
+  socket I/O     `chaos_dialing(plan)` wraps every socket `wire.dial`
+                 returns in a ChaosSocket that injects connection
+                 resets, partial sends/recvs, and delays on scheduled
+                 operation indices
   checkpoint I/O `chaos_checkpoint_io(plan)` arms utils/atomicio's
                  `_WRITE_FAULT` hook to raise ENOSPC (or any OSError) on
                  scheduled atomic writes
@@ -21,20 +24,32 @@ that ships — not mocks of it — by wrapping its seams:
                  clock — an injected hang raises DispatchHang at once
                  rather than sleeping out a real timeout
 
-Determinism contract: faults fire on operation indices, not on wall clock
-or rates, so the same plan against the same (single-threaded) campaign
-faults at exactly the same points on every run.
+Determinism contract: a schedule is either scripted explicitly or drawn
+once from `random.Random(seed)` at plan construction.  Faults fire on
+per-socket / per-write / per-dispatch OPERATION INDICES, not on wall
+clock or rates, so the same plan against the same (single-threaded) node
+or campaign faults at exactly the same points on every run.
 """
 
 from __future__ import annotations
 
 import errno
+import random
+import time
 from contextlib import contextmanager
 from typing import Dict, List, Optional
 
+from wtf_tpu_torch.dist import wire
 from wtf_tpu_torch.supervise import DEVICE_POISON, MACHINE_SEAMS
 from wtf_tpu_torch.supervise import supervisor as _supervisor
 from wtf_tpu_torch.utils import atomicio
+
+RESET = "reset"
+PARTIAL_SEND = "partial-send"
+PARTIAL_RECV = "partial-recv"
+DELAY = "delay"
+
+_KINDS = (RESET, PARTIAL_SEND, PARTIAL_RECV, DELAY)
 
 
 class SimulatedKill(Exception):
@@ -42,22 +57,55 @@ class SimulatedKill(Exception):
 
 
 class FaultPlan:
-    """A set of faulting atomic-write indices and a device-fault schedule.
+    """A fixed sequence of per-socket fault schedules, a set of faulting
+    atomic-write indices and a device-fault schedule.
 
+    `socket_schedules[i]` is handed to the i-th socket the harness wraps
+    (dial order — deterministic for the single-threaded node loops); it
+    maps that socket's operation index (each sendall/recv call counts
+    one) to a fault kind.  Sockets beyond the list run fault-free.
     `write_faults` are global atomic-write indices that raise
     `write_error` (default ENOSPC) before any byte lands.
     `device_faults` maps a global supervised-dispatch index to a kind or
-    (kind, arg) — arg is the lane for DEVICE_POISON.  (The JAX plan's
-    per-socket schedules arrive with the master/client plane.)"""
+    (kind, arg) — arg is the lane for DEVICE_POISON."""
 
-    def __init__(self, write_faults=(), write_error: Optional[OSError]
-                 = None, device_faults: Optional[Dict[int, object]] = None):
+    def __init__(self, socket_schedules: Optional[List[Dict[int, str]]]
+                 = None, write_faults=(), delay_secs: float = 0.005,
+                 write_error: Optional[OSError] = None,
+                 device_faults: Optional[Dict[int, object]] = None):
+        self.socket_schedules = [dict(s) for s in (socket_schedules or [])]
         self.write_faults = set(write_faults)
+        self.delay_secs = delay_secs
         self.write_error = write_error
         self.device_faults = dict(device_faults or {})
+        self._next_socket = 0
         self._next_write = 0
         # observability for assertions: what actually fired
         self.fired: List[tuple] = []
+
+    @classmethod
+    def seeded(cls, seed: int, n_sockets: int, faults_per_socket: int = 1,
+               ops_range: tuple = (2, 40), kinds=(RESET, PARTIAL_SEND,
+                                                  PARTIAL_RECV, DELAY),
+               delay_secs: float = 0.005) -> "FaultPlan":
+        """Draw a reproducible plan from `seed`: for each of `n_sockets`,
+        `faults_per_socket` faults at operation indices uniform in
+        `ops_range` with kinds uniform over `kinds`."""
+        rng = random.Random(seed)
+        schedules = []
+        for _ in range(n_sockets):
+            sched: Dict[int, str] = {}
+            for _ in range(faults_per_socket):
+                sched[rng.randrange(*ops_range)] = rng.choice(list(kinds))
+            schedules.append(sched)
+        return cls(schedules, delay_secs=delay_secs)
+
+    def next_schedule(self) -> Dict[int, str]:
+        i = self._next_socket
+        self._next_socket += 1
+        if i < len(self.socket_schedules):
+            return self.socket_schedules[i]
+        return {}
 
     def note(self, *what) -> None:
         self.fired.append(what)
@@ -129,6 +177,88 @@ class SeamFaultPlan(FaultPlan):
         if fault is not None:
             self._last = index
         return fault
+
+
+class ChaosSocket:
+    """Socket proxy executing one FaultPlan schedule.  Everything not
+    faulted delegates to the real socket, so framing, TCP_NODELAY, and
+    close semantics are exactly production's."""
+
+    def __init__(self, sock, schedule: Dict[int, str], plan: FaultPlan):
+        # plain attributes; delegation via __getattr__ only for names not
+        # defined here
+        self._sock = sock
+        self._sched = dict(schedule)
+        self._plan = plan
+        self._op = 0
+
+    def _fault(self) -> Optional[str]:
+        kind = self._sched.pop(self._op, None)
+        self._op += 1
+        return kind
+
+    def _die(self) -> None:
+        try:
+            self._sock.close()
+        except OSError:
+            pass
+        raise ConnectionResetError(errno.ECONNRESET,
+                                   "chaos: injected connection reset")
+
+    def sendall(self, data):
+        kind = self._fault()
+        if kind == RESET:
+            self._plan.note(RESET, "send")
+            self._die()
+        if kind == PARTIAL_SEND:
+            # half the bytes land, then the connection dies: the peer
+            # sees a torn frame (recv_exact returns None mid-body)
+            self._plan.note(PARTIAL_SEND, len(data))
+            try:
+                self._sock.sendall(data[:max(1, len(data) // 2)])
+            except OSError:
+                pass
+            self._die()
+        if kind == DELAY:
+            self._plan.note(DELAY, "send")
+            time.sleep(self._plan.delay_secs)
+        return self._sock.sendall(data)
+
+    def recv(self, n):
+        kind = self._fault()
+        if kind == RESET:
+            self._plan.note(RESET, "recv")
+            self._die()
+        if kind == PARTIAL_RECV:
+            # deliver a single byte now and schedule the reset for the
+            # very next operation: the reader tears mid-frame
+            self._plan.note(PARTIAL_RECV, n)
+            self._sched[self._op] = RESET
+            return self._sock.recv(min(1, n) if n else n)
+        if kind == DELAY:
+            self._plan.note(DELAY, "recv")
+            time.sleep(self._plan.delay_secs)
+        return self._sock.recv(n)
+
+    def __getattr__(self, name):
+        return getattr(self._sock, name)
+
+
+@contextmanager
+def chaos_dialing(plan: FaultPlan):
+    """Within the context, every socket `wire.dial` hands out is wrapped
+    with the plan's next schedule (dial order)."""
+    original = wire.dial
+
+    def dial(*args, **kwargs):
+        return ChaosSocket(original(*args, **kwargs),
+                           plan.next_schedule(), plan)
+
+    wire.dial = dial
+    try:
+        yield plan
+    finally:
+        wire.dial = original
 
 
 @contextmanager
