@@ -21,7 +21,12 @@ Phases (each prints one line; any failure exits non-zero):
      then a ragged set: 1001 lanes (not a whole number of blocks) of 50
      overlay rows (not a whole number of 32-row lookup rounds), with one
      pfn in several rows, rows claimed up to count == slots, pfns found
-     only in the second lookup round, and non-free rows past `count`
+     only in the second lookup round, and non-free rows past `count`;
+     then a stacked three-tenant image at 4096 lanes: three images whose
+     code and data share virtual addresses (other pages and other code
+     behind them; the third only at canonical-negative addresses), the
+     lanes' tenants interleaved (lane % 3), every tenant retiring
+     instructions in K1: all planes bit-identical
   4. `run --name demo_tlv` on a crashing type-3 record, on the card and on
      --device cpu: the same crash name, rip and icount
   5. the main path: `campaign --name demo_tlv --fused-step on --lanes 4096
@@ -61,8 +66,8 @@ Phases (each prints one line; any failure exits non-zero):
      0.95, windows > 0, every lane terminal; execs/s, spans, windows
      (and how many ended incomplete, finished by the host service),
      batches and K1 launches per window, the window's precise sweeps,
-     device memory; the same campaign with --megachunk 0 twice and the
-     window once more, in turns (equal results, execs/s of each, spans);
+     device memory; the same campaign with --megachunk 0 once, in turns
+     with the window (equal results, execs/s of each, spans);
      then the window campaign under torch.profiler for the host share
  11. a 64-lane, 256-run window campaign at the same seed on the card and
      on the CPU, and on the card with --megachunk 0: equal corpus
@@ -102,8 +107,8 @@ Phases (each prints one line; any failure exits non-zero):
      demo_spin on the card and on the CPU: equal results
  18. demo_spin deep, bench.py's chip workload (1024 lanes, max_len 4, the
      native engine behind bench's spin-count cap, --fused-k 32) at limit
-     250,000: a warm-up batch with K1 rounds 4,000-4,250 traced by
-     torch.profiler, then unprofiled batches for 20 s; execs/s,
+     125,000: a warm-up batch with K1 rounds 3,000-3,100 traced by
+     torch.profiler, then unprofiled batches for 10 s; execs/s,
      instructions/s, timeout fraction, K1 launches per batch and per
      second, K1's and the resume legs' shares of the wall, the host
      share of the traced rounds against their unprofiled wall
@@ -199,11 +204,35 @@ Phases (each prints one line; any failure exits non-zero):
      fires once, the node reconnects (dist.retries >= 1), the master
      reclaims the batch in flight (dist.reclaimed >= 1) and counts every
      testcase once, and outputs/ stays content-addressed
+ 30. demo_pe, compiler-made Windows code: `campaign --name demo_pe
+     --fused-step on --lanes 4096 --runs 4096 --limit 1500 --seed 5`
+     seeded with test_pe_target's BENIGN, its structure mutator, counts
+     zeroed just before and read just after: K1 launched, every lane
+     terminal; execs/s, K1 launches, precise steps and the share of them
+     that computed an FP group, the resume legs' share of the wall,
+     fallbacks by opclass, TIMEDOUT lanes, device peak.  Where the DLL
+     is missing (PyOpenGL's wheel is not installed; --pe-dll names a
+     copy) it prints a skip line
+ 31. the slice's main path, `sched --lanes 4096 --limit 50000 --quantum 2
+     --fused-step on --store DIR --telemetry-dir DIR` over four jobs
+     (demo_tlv devmangle 2048 lanes, demo_kernel 1024, demo_pe 512,
+     demo_maze 1024: 4608 > 4096, so one waits; without the DLL demo_maze
+     takes demo_pe's lanes and priority): every job finishes its runs, at
+     least one preemption and one resume, K1 launched in every round and
+     K2 once per placement build, each job's store namespace fsck-clean;
+     testcases, crashes and preemptions per job, execs/s, K1 launches
+     per round, the sched-place and checkpoint spans, the resume legs'
+     share, device peak
+ 32. the table at 64 lanes (32/16/8/16, quantum 1, limit 20,000) on the
+     card and on the CPU: equal summaries, final checkpoints and crash
+     names per job; a demo_tlv + demo_kernel + demo_pe mix (4 lanes
+     each, 2 batches) equal, tenant by tenant, to each solo run on the
+     card; a 32-lane x 64-run demo_pe campaign card == CPU
 
 Phase 8 fails unless its host mutator is the native engine (the one the
 reference CLI picks).  Every phase always runs, at the sizes above.
-Phases 6, 9, 11, 14, 17 and 28 and the comparisons of phases 20-26 run
-last, after the timed phases: their CPU sides run in worker processes started
+Phases 6, 9, 11, 14, 17, 28 and 32 and the comparisons of phases 20-26
+run last, after the timed phases: their CPU sides run in worker processes started
 together (spawned, and joined before the script ends) while this process
 runs their card sides.  The line before the kernels' JSON record gives
 the seconds the phases took; the card's nvidia-smi line
@@ -218,6 +247,8 @@ from __future__ import annotations
 import argparse
 import json
 import multiprocessing
+import os
+import struct
 import subprocess
 import sys
 import tempfile
@@ -319,9 +350,9 @@ TARGET_SEEDS = {"demo_maze": [b"aaaa"],
                 "demo_fs": [b"HELLOWORLD123456"]}
 # phase 18: bench.py's deep workload, its limit cut from 10M
 SPIN_LANES = 1024
-SPIN_LIMIT = 250_000
-SPIN_SECONDS = 20.0
-SPIN_WINDOW = (4_000, 4_250)           # K1 rounds traced for the host share
+SPIN_LIMIT = 125_000
+SPIN_SECONDS = 10.0
+SPIN_WINDOW = (3_000, 3_100)           # K1 rounds traced for the host share
 SPIN_SMALL_LIMIT = 500                 # phase 17's 64-lane demo_spin
 TERMINAL = {"OK", "CRASH", "TIMEDOUT", "PAGE_FAULT", "OVERLAY_FULL",
             "CR3_CHANGE", "DIVIDE_ERROR", "HARD_ERROR"}
@@ -329,6 +360,39 @@ SPANS = ("mutate", "execute", "harvest", "restore", "execute/insert",
          "execute/fused-step", "execute/device-step", "execute/service-pull",
          "execute/service-decode", "execute/service-push",
          "execute/cov-readback", "restore/overlay-restore")
+
+# phases 30-32: demo_pe (compiler-made code; tests/test_pe_target.py's
+# inputs: BENIGN's 4 points finish after 6,740 instructions) and the
+# multi-tenant scheduler
+PE_PTS = struct.pack("<12d", 1.0, 2.0, 3.0, 2.0, 3.0, 4.0, 3.0, 4.0, 5.0,
+                     4.0, 5.0, 6.0)
+PE_BENIGN = struct.pack("<Id", 4, 0.5) + PE_PTS
+PE_ZERO = struct.pack("<Id", 0, 1.0)   # a count of 0: crashes after 662
+PE_RUNS = LANES                        # phase 30: one batch
+# phase 30's limit, cut from 50,000: each K1 park at an FP instruction
+# costs a ~70 ms precise step over all 4096 lanes, so a batch costs its
+# longest lane's FP instructions in legs (657.6 s at 50,000)
+PE_LIMIT = 1_500
+PCAMPAIGN = ["campaign", "--name", "demo_pe", "--fused-step", "on",
+             "--lanes", str(LANES), "--runs", str(PE_RUNS), "--limit",
+             str(PE_LIMIT), "--seed", "5"]
+# phase 31's jobs table: (name, target, mutator, lanes, runs, priority);
+# the quotas sum to 4608 over 4096 lanes, so one job always waits.  A
+# batch lasts as long as its slowest lane, and a demo_pe lane parks K1 at
+# every FP instruction, so carol runs one batch (2048 runs cut to 512)
+# from the count-0 seed, whose mutants stay near 1,200 instructions
+SCHED_JOBS = (("alice", "demo_tlv", "devmangle", 2048, 16384, 2),
+              ("bob", "demo_kernel", "auto", 1024, 8192, 1),
+              ("carol", "demo_pe", "auto", 512, 512, 1),
+              ("dave", "demo_maze", "auto", 1024, 4096, 0))
+SCHED_SEEDS = {"demo_tlv": b"\x01\x04AAAA\x02\x08BBBBBBBB",
+               "demo_kernel": b"hello-world-123",
+               "demo_pe": PE_ZERO, "demo_maze": b"aaaa"}
+SCHED_LIMIT = 50_000                   # tests/test_tenancy.py's LIMIT
+TWIN_LIMIT = 20_000                    # phase 32's twins
+TWIN_SCHED_RUNS = {"alice": 64, "bob": 32, "carol": 8, "dave": 32}
+TWIN_PE_LANES = 32
+TWIN_PE_RUNS = 64
 
 # Phase 7's guest: the integer and system classes of the precise step, one
 # after another (GNU as, Intel syntax; ` ; ` separates instructions).
@@ -1642,10 +1706,10 @@ def phase_window_campaign(k1: dict, k2: dict, record: dict) -> None:
     torch.cuda.empty_cache()
 
     # the same devmangle campaign batch at a time (--megachunk 0), in
-    # turns with the window on this card (window, batch, batch, window):
-    # the window's own effect at full width, and the same results
+    # turns with the window on this card (window, batch): the window's
+    # own effect at full width, and the same results
     walls = {"8": [wall], "0": []}
-    for mc in ("0", "0", "8"):
+    for mc in ("0",):
         t0 = time.perf_counter()
         loop = cli.campaign(cli.build_parser().parse_args(
             CAMPAIGN + ["--mutator", "devmangle", "--megachunk", mc]))
@@ -1662,7 +1726,7 @@ def phase_window_campaign(k1: dict, k2: dict, record: dict) -> None:
         loop.backend.restore()
         del loop
         torch.cuda.empty_cache()
-    print(f"phase 10: in turns (window, batch, batch, window), equal corpus, "
+    print(f"phase 10: in turns (window, batch), equal corpus, "
           f"crashes and cov/edge bytes: execs/s --megachunk 8 "
           f"{[round(RUNS / w, 1) for w in walls['8']]}, --megachunk 0 "
           f"{[round(RUNS / w, 1) for w in walls['0']]}; --megachunk 0 spans "
@@ -1896,10 +1960,9 @@ def phase_dd_window_campaign(k1: dict, k2: dict, record: dict,
     del loop, backend
     torch.cuda.empty_cache()
 
-    # in turns on this card (dd, window, window, dd): equal results
+    # in turns on this card (dd, window): equal results
     walls = {"dd": [wall], "window": []}
-    for argv, key in ((WCAMPAIGN, "window"), (WCAMPAIGN, "window"),
-                      (DCAMPAIGN, "dd")):
+    for argv, key in ((WCAMPAIGN, "window"),):
         t0 = time.perf_counter()
         loop = cli.campaign(cli.build_parser().parse_args(argv))
         torch.cuda.synchronize()
@@ -1909,7 +1972,7 @@ def phase_dd_window_campaign(k1: dict, k2: dict, record: dict,
         loop.backend.restore()
         del loop
         torch.cuda.empty_cache()
-    print(f"phase 13: in turns (dd, window, window, dd), equal corpus, "
+    print(f"phase 13: in turns (dd, window), equal corpus, "
           f"crashes and cov/edge bytes: execs/s --device-decode "
           f"{[round(RUNS / w, 1) for w in walls['dd']]}, without "
           f"{[round(RUNS / w, 1) for w in walls['window']]}")
@@ -2676,13 +2739,12 @@ def phase_supervised(k1: dict, k2: dict, record: dict,
     del loop
     torch.cuda.empty_cache()
 
-    # the cost in parts, in turns T S C S T after the run above (the
-    # first C): T is phase 10's campaign writing outputs/ and crashes/
+    # the cost in parts, in turns T S after the run above (C): T is phase 10's campaign writing outputs/ and crashes/
     # into a target dir, S adds the supervisor (watchdog, integrity,
     # snapshot), C adds a checkpoint after every batch
     argvs = {"T": WCAMPAIGN, "S": WCAMPAIGN + SUPERVISE, "C": SCAMPAIGN}
     walls = {"T": [], "S": [], "C": [wall]}
-    for key in "TSCST":
+    for key in "TS":
         got, seconds = timed_campaign(argvs[key])
         check(got[:4] == window_out[:4],
               f"phase 21's {key} run differs from phase 10's")
@@ -2692,7 +2754,7 @@ def phase_supervised(k1: dict, k2: dict, record: dict,
     parts = {"target dir": mean["T"] - sum(p10) / len(p10),
              "supervisor": mean["S"] - mean["T"],
              "checkpoints": mean["C"] - mean["S"]}
-    print(f"phase 21: in turns (C, T, S, C, S, T), equal results: walls "
+    print(f"phase 21: in turns (C, T, S), equal results: walls "
           f"T (phase 10 + --target) {walls['T']}, S (+ {' '.join(SUPERVISE)}"
           f") {walls['S']}, C (+ --checkpoint-every 1) {walls['C']}; "
           f"phase 10's {p10}; mean differences: "
@@ -3610,15 +3672,609 @@ def phase_node_chaos(k1: dict, record: dict, work: Path) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 3's stacked case and phases 30-32: demo_pe and the scheduler
+# ---------------------------------------------------------------------------
+
+def grid_tenant(variant: int):
+    """(pages, cpu, [(code, base)]) of one tenant of phase 3's stacked
+    image.  Every variant maps the grid's virtual addresses with other
+    bytes behind them: 0 is phase 3's guest; 1 shifts its physical pages
+    (a filler mapping first), fills its data pages and starts its code
+    0x40 bytes in behind a NOP sled; 2 runs only at canonical-negative
+    addresses, its code 0x10 bytes in, and holds int3s where the others
+    hold code."""
+    import random as _random
+
+    from wtf_tpu_torch.snapshot.synthetic import SyntheticSnapshotBuilder
+
+    b = SyntheticSnapshotBuilder()
+    rng = _random.Random(variant)
+    if variant == 1:
+        b.map(0x0003_0000_0000, 0x3000)
+    pad = {0: 0, 1: 0x40, 2: 0x10}[variant]
+    fill = {0: b"", 1: b"\x90" * pad, 2: b"\xcc" * pad}[variant]
+    if variant == 2:
+        b.write(GRID_CODE_GVA, b"\xcc" * len(GRID_CODE))
+    else:
+        b.write(GRID_CODE_GVA, fill + GRID_CODE)
+    b.write(GRID_KCODE_GVA, fill + GRID_CODE)
+    if variant == 1:
+        b.write(GRID_DATA_GVA, bytes(rng.getrandbits(8)
+                                     for _ in range(0x4000)))
+    else:
+        b.map(GRID_DATA_GVA, 0x4000)
+    b.map(GRID_KDATA_GVA, 0x2000)
+    b.map(GRID_RO_GVA, 0x1000, writable=False)
+    b.map(GRID_STACK_TOP - 0x8000, 0x9000)
+    start = (GRID_KCODE_GVA if variant == 2 else GRID_CODE_GVA) + pad
+    pages, cpu = b.build(rip=start, rsp=GRID_STACK_TOP - 0x1000)
+    code = [(GRID_CODE, GRID_KCODE_GVA + pad)]
+    if variant != 2:
+        code.append((GRID_CODE, GRID_CODE_GVA + pad))
+    return pages, cpu, code
+
+
+def stacked_state(n_lanes: int, seed: int, dev):
+    """(tab, image, machine, limit, tenant of each lane) of n_lanes random
+    lanes over a stacked three-tenant image (grid_tenant 0, 1, 2), the
+    lanes' tenants interleaved (lane % 3, not in blocks): each lane at a
+    random instruction boundary of its own tenant's code, its data
+    pointers in its own tenant's pages."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from wtf_tpu_torch.core.results import StatusCode
+    from wtf_tpu_torch.interp.runner import Runner
+    from wtf_tpu_torch.snapshot.loader import Snapshot
+
+    class Spec:
+        def __init__(self, snapshot, lanes):
+            self.snapshot, self.lanes = snapshot, lanes
+
+    built = [grid_tenant(v) for v in range(3)]
+    snaps = [Snapshot.from_pages(pages, cpu) for pages, cpu, _ in built]
+    third = n_lanes // 3
+    quotas = [third, third, n_lanes - 2 * third]
+    r = Runner(snaps[0], n_lanes=n_lanes, overlay_slots=SLOTS, device=dev,
+               tenants=[Spec(s, q) for s, q in zip(snaps, quotas)])
+    # re-deal the block layout into an interleaved one: every plane of
+    # lane l comes from the first lane of tenant l % 3's block
+    tenant = np.arange(n_lanes, dtype=np.int32) % 3
+    lo = np.cumsum([0] + quotas)[:-1]
+    src = torch.from_numpy(lo[tenant]).to(dev)
+    m = r.machine
+    for f in dataclasses.fields(m):
+        if f.name != "overlay":
+            setattr(m, f.name, getattr(m, f.name)[src].clone())
+    r.tenant_of_lane = tenant
+    r.image = dataclasses.replace(
+        r.image, tenant=torch.from_numpy(tenant).to(dev))
+    view = r.view()
+    rips = []
+    for t, (_, _, code) in enumerate(built):
+        rips.append([])
+        for blob, base in code:
+            off = 0
+            while off < len(blob):
+                rip = base + off
+                rips[t].append(rip)
+                r._decode_at(view, t, rip)
+                off += r.cache.uop_at(rip, t).length
+    r.cache.set_breakpoint(rips[0][3], tenant=0)
+    r.cache.set_breakpoint(rips[1][3], tenant=1)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n = n_lanes
+    t_of = torch.from_numpy(tenant).to(dev)
+
+    def rint(lo_, hi, shape=(n,)):
+        return torch.randint(lo_, hi, shape, generator=g, device=dev)
+
+    def pick(values, shape=(n,)):
+        v = torch.tensor([s64(x) for x in values], dtype=torch.int64,
+                         device=dev)
+        return v[rint(0, len(values), shape)]
+
+    m.rip = torch.stack([pick(rips[t]) for t in range(3)])[t_of,
+                                                           torch.arange(n)]
+    m.gpr = rint(-2**63, 2**63 - 1, (n, 16))
+    m.gpr[:, 1] = torch.where(rint(0, 2) == 1, rint(0, 4), m.gpr[:, 1])
+    high = (t_of == 2) | ((t_of == 0) & (rint(0, 4) == 0))
+    m.gpr[:, 3] = torch.where(high, s64(GRID_KDATA_GVA),
+                              GRID_DATA_GVA) + rint(0, 0x1000)
+    m.gpr[:, 4] = GRID_STACK_TOP - 0x1000 - 8 * rint(0, 64)
+    m.gpr[:, 13] = torch.where(high, s64(GRID_KDATA_GVA + 0x40),
+                               GRID_DATA_GVA + 0x40)
+    m.gpr[:, 14] = torch.where(high, s64(GRID_KDATA_GVA + 0x80),
+                               GRID_DATA_GVA + 0x80)
+    m.rflags = (rint(0, 1 << 12) | 2) | (rint(0, 1 << 20) << 32)
+    m.icount = rint(0, 1030)
+    m.bp_skip = (rint(0, 3) == 0).to(torch.int32)
+    m.status = torch.where(rint(0, 10) == 0, int(StatusCode.OK),
+                           int(StatusCode.RUNNING)).int()
+    m.ctr = rint(0, 1 << 20, (n, 6)).int()
+    ov = m.overlay
+    data_pfns = torch.tensor(
+        [[view.translate(t, GRID_DATA_GVA + i * 0x1000) >> 12
+          for i in range(4)] for t in range(3)], device=dev)
+    count = torch.where(rint(0, 10) == 0, SLOTS, rint(0, 6))
+    rows = torch.arange(SLOTS, device=dev)[None, :]
+    pfns = data_pfns[t_of][torch.arange(n, device=dev)[:, None],
+                           rint(0, 4, (n, SLOTS))]
+    used = rows < count[:, None]
+    ov.pfn.copy_(torch.where(used, pfns, -1).int())
+    ov.count.copy_(count.int())
+    ov.valid.copy_((rint(0, 2, tuple(ov.valid.shape)) *
+                    used[..., None]).to(torch.uint8))
+    ov.data.copy_(rint(-2**63, 2**63 - 1, tuple(ov.data.shape)))
+    return r.cache.device(dev), r.image, m, 1000, tenant
+
+
+def phase_random_stacked(dev, k1: dict, record: dict) -> None:
+    """Phase 3's third set: K1 against its plain version on the stacked
+    three-tenant image, tenants interleaved, 4096 lanes, k=32; then K1's
+    time per dispatch there against phase 3's single-image set, in turns
+    (single, stacked, stacked, single)."""
+    import numpy as np
+    import torch
+
+    from wtf_tpu_torch.interp import pstep
+    from wtf_tpu_torch.interp.machine import CTR_INSTR
+
+    t0 = time.perf_counter()
+    tab, img, m0, limit, tenant = stacked_state(LANES, 5, dev)
+    mk, mp = m0.clone(), m0.clone()
+    pstep.fused_step(tab, img, mk, limit, 32)
+    torch.cuda.synchronize()
+    pstep.fused_step_plain(tab, img, mp, limit, 32)
+    torch.cuda.synchronize()
+    bad, err = plane_diff(mk, mp)
+    check(not bad, f"K1 differs from fused_step_plain in {bad} on the "
+                   f"stacked three-tenant image (max abs err {err})")
+    retired = (mk.ctr - m0.ctr)[:, CTR_INSTR].long().cpu().numpy()
+    per_tenant = [int(retired[tenant == t].sum()) for t in range(3)]
+    check(min(per_tenant) > 0,
+          f"phase 3: a tenant of the stacked image retired nothing "
+          f"in K1: {per_tenant}")
+    counts = {int(k): int(v) for k, v in zip(*np.unique(
+        mk.status.cpu().numpy(), return_counts=True))}
+    states = {"stacked": (tab, img, m0, limit)}
+    states["single"] = grid_state(LANES, 3, dev)
+    work = {}
+    ms = {"single": [], "stacked": []}
+    for name in ("single", "stacked", "stacked", "single"):
+        s_tab, s_img, s_m0, s_limit = states[name]
+
+        def fresh():
+            work["m"] = s_m0.clone()
+        ms[name].append(cuda_ms(lambda: pstep.fused_step(
+            s_tab, s_img, work["m"], s_limit, 32), 10, setup=fresh))
+    record["stacked_k1_ms"] = ms
+    print(f"phase 3: K1 == fused_step_plain on {LANES} lanes of a stacked "
+          f"three-tenant image (tenants interleaved lane % 3; shared "
+          f"virtual addresses, other pages and code behind them; tenant 2 "
+          f"at canonical-negative addresses only), k=32, all planes "
+          f"bit-identical: retired per tenant {per_tenant}, statuses "
+          f"{counts}; K1 {[round(x, 4) for x in ms['stacked']]} ms per "
+          f"dispatch there against {[round(x, 4) for x in ms['single']]} "
+          f"on the single-image set (in turns, CUDA events) "
+          f"({time.perf_counter() - t0:.1f} s)")
+    k1["max_abs_err"] = max(k1["max_abs_err"] or 0, err)
+
+
+def span_totals(registry) -> dict:
+    """{span path: seconds} of every span a registry recorded."""
+    from wtf_tpu_torch.telemetry.spans import SECONDS
+
+    return {path: c.value
+            for path, c in registry.counter(SECONDS).children.items()}
+
+
+def pe_available() -> bool:
+    from wtf_tpu_torch.harness import demo_pe
+
+    return demo_pe.available()
+
+
+def count_precise_steps():
+    """Wrap the precise step so each call is counted, and apart those
+    that computed an FP group (sse, ssefp, x87).  Returns (counts dict,
+    undo)."""
+    from wtf_tpu_torch.interp import step as step_mod
+
+    counts = {"steps": 0, "fp_steps": 0}
+    original = step_mod.step
+
+    def counted(tab, image, m, limit, pre=None,
+                groups=step_mod.ALL_GROUPS):
+        counts["steps"] += 1
+        if groups & FP_GROUPS:
+            counts["fp_steps"] += 1
+        return original(tab, image, m, limit, pre, groups)
+
+    step_mod.step = counted
+
+    def undo():
+        step_mod.step = original
+    return counts, undo
+
+
+def phase_pe_campaign(k1: dict, k2: dict, record: dict, work: Path) -> None:
+    """Phase 30: the 4096-lane demo_pe campaign (compiler-made code)."""
+    import torch
+
+    from wtf_tpu_torch import cli
+    from wtf_tpu_torch.interp import pstep
+
+    if not pe_available():
+        print("phase 30: skipped: demo_pe's DLL (gle64.vc14.dll of "
+              "PyOpenGL's wheel) is not on this machine; --pe-dll names "
+              "a copy")
+        record["pe_campaign"] = {"skipped": True}
+        return
+    root = work / "pe"
+    (root / "inputs").mkdir(parents=True)
+    (root / "inputs" / "benign").write_bytes(PE_BENIGN)
+    a = cli.build_parser().parse_args(
+        PCAMPAIGN + ["--target", str(root)])
+    counts, undo = count_precise_steps()
+    torch.cuda.reset_peak_memory_stats()
+    for name in pstep.LAUNCHES:
+        pstep.LAUNCHES[name] = 0
+    t0 = time.perf_counter()
+    try:
+        loop = cli.campaign(a)
+        torch.cuda.synchronize()
+    finally:
+        undo()
+    wall = time.perf_counter() - t0
+    launches = dict(pstep.LAUNCHES)
+    backend = loop.backend
+    reg = backend.registry
+    status = backend.status_counts
+    check(launches["fused_step"] > 0, f"phase 30: K1 never launched")
+    check(set(status) <= TERMINAL
+          and sum(status.values()) == loop.stats.testcases == PE_RUNS,
+          f"phase 30: non-terminal lanes: {status}")
+    totals = span_totals(reg)
+    legs = totals.get("execute/device-step", 0.0)
+    by_class = dict(backend.runner.stats["fallbacks_by_opclass"])
+    instr = reg.counter("device.instructions").value
+    fused = reg.counter("device.fused_steps").value
+    peak = torch.cuda.max_memory_allocated()
+    print(f"phase 30: demo_pe campaign {loop.stats.testcases} testcases in "
+          f"{wall:.2f} s = {loop.stats.testcases / wall:.1f} execs/s; K1 "
+          f"launches {launches['fused_step']}, K2 {launches['probe']}; "
+          f"precise steps {counts['steps']} (FP groups in "
+          f"{counts['fp_steps']}, {counts['fp_steps'] / max(counts['steps'], 1):.3f}); "
+          f"resume legs {legs:.2f} s = {legs / wall:.3f} of the wall; "
+          f"fused occupancy {fused / max(instr, 1):.4f} ({fused}/{instr}); "
+          f"fallbacks {backend.runner.stats['fallbacks']} {by_class}; "
+          f"statuses {status} (TIMEDOUT {status.get('TIMEDOUT', 0)}); "
+          f"crashes {loop.stats.crashes}, corpus {len(loop.corpus)}; "
+          f"device peak {peak}")
+    k1["launches_by_path"]["demo_pe"] = launches["fused_step"]
+    k2["launches_by_path"]["demo_pe"] = launches["probe"]
+    record["pe_campaign"] = {
+        "testcases": loop.stats.testcases, "wall_s": wall,
+        "execs_per_s": loop.stats.testcases / wall,
+        "k1_launches": launches["fused_step"],
+        "k2_launches": launches["probe"], "precise_steps": counts,
+        "legs_s": legs, "legs_share": legs / wall,
+        "occupancy": fused / max(instr, 1), "fallbacks_by_opclass":
+        by_class, "statuses": status, "device_peak": peak,
+        "spans": {k: round(v, 3) for k, v in totals.items()}}
+
+
+def write_jobs(root: Path, jobs) -> Path:
+    """A jobs.json for `jobs` ((name, target, mutator, lanes, runs,
+    priority) rows), each job's inputs/ holding its target's seed."""
+    rows = []
+    for name, target, mutator, lanes, runs, priority in jobs:
+        inputs = root / "inputs" / name
+        inputs.mkdir(parents=True)
+        (inputs / "seed").write_bytes(SCHED_SEEDS[target])
+        rows.append({"name": name, "target": target, "lanes": lanes,
+                     "runs": runs, "priority": priority, "seed": 5,
+                     "mutator": mutator, "inputs": str(inputs),
+                     "max_len": 1024 if target == "demo_pe" else 96})
+    path = root / "jobs.json"
+    path.write_text(json.dumps({"jobs": rows}))
+    return path
+
+
+def sched_jobs(scale: int = 1, runs: dict = None) -> list:
+    """The phase-31 jobs table, lane quotas divided by `scale` and runs
+    replaced from `runs`.  Where demo_pe's DLL is missing carol's row is
+    left out and dave takes her lanes (runs in proportion) and her
+    priority, so the quotas still oversubscribe the batch and dave, at
+    bob's priority, rotates with bob: a preemption and a resume."""
+    rows = [list(row) for row in SCHED_JOBS]
+    if not pe_available():
+        carol = next(r for r in rows if r[1] == "demo_pe")
+        dave = next(r for r in rows if r[0] == "dave")
+        dave[4] = dave[4] * (dave[3] + carol[3]) // dave[3]
+        dave[3] += carol[3]
+        dave[5] = carol[5]
+        rows.remove(carol)
+    return [(name, target, mutator, lanes // scale,
+             (runs or {}).get(name, n_runs), priority)
+            for name, target, mutator, lanes, n_runs, priority in rows]
+
+
+def run_sched(root: Path, jobs, lanes: int, limit: int, device: str,
+              quantum: int, extra: tuple = ()) -> tuple:
+    """`sched` through cli.sched over a fresh `root`: (summary, registry,
+    wall seconds, the workdir, the store root, K1/K2 launches per round
+    [(placed names, k1, k2)])."""
+    from wtf_tpu_torch import cli
+    from wtf_tpu_torch.interp import pstep
+    from wtf_tpu_torch.tenancy.sched import Scheduler
+    from wtf_tpu_torch.telemetry import Registry, open_event_log
+
+    path = write_jobs(root, jobs)
+    a = cli.build_parser().parse_args(
+        ["sched", "--jobs", str(path), "--workdir", str(root / "work"),
+         "--lanes", str(lanes), "--limit", str(limit), "--quantum",
+         str(quantum), "--fused-step", "on", "--device", device,
+         "--store", str(root / "store"), "--telemetry-dir",
+         str(root / "tele"), *extra])
+    rounds = []
+    original = Scheduler._run_round
+
+    def counted(self, placed):
+        before = dict(pstep.LAUNCHES)
+        original(self, placed)
+        rounds.append((tuple(j.name for j in placed),
+                       pstep.LAUNCHES["fused_step"] - before["fused_step"],
+                       pstep.LAUNCHES["probe"] - before["probe"]))
+
+    registry = Registry()
+    events = open_event_log(root / "tele")
+    Scheduler._run_round = counted
+    t0 = time.perf_counter()
+    try:
+        _sched, summary = cli.sched(a, registry, events)
+    finally:
+        Scheduler._run_round = original
+    wall = time.perf_counter() - t0
+    events.emit("run-end", metrics=registry.dump())
+    events.close()
+    return summary, registry, wall, root / "work", root / "store", rounds
+
+
+def sched_outcome(work: Path, summary: dict) -> dict:
+    """Per job what must equal between two runs of one jobs table: the
+    summary, the final checkpoint (wall-clock counters dropped) and the
+    crash file names."""
+    from wtf_tpu_torch.resume.checkpoint import load_campaign
+
+    out = {}
+    for job, s in summary.items():
+        state, _ = load_campaign(work / job / "checkpoint")
+        state["stats"] = {k: v for k, v in state["stats"].items()
+                          if not k.endswith(".lane_ms")}
+        crashes = work / job / "crashes"
+        out[job] = (s, json.dumps(state, sort_keys=True, default=str),
+                    sorted(p.name for p in crashes.iterdir())
+                    if crashes.is_dir() else [])
+    return out
+
+
+def phase_sched(k1: dict, k2: dict, record: dict, work: Path) -> None:
+    """Phase 31: `sched` over 4096 lanes, four jobs whose quotas
+    oversubscribe the batch."""
+    import torch
+
+    from wtf_tpu_torch.fleet.store import FleetStore
+    from wtf_tpu_torch.interp import pstep
+
+    jobs = sched_jobs()
+    torch.cuda.reset_peak_memory_stats()
+    for name in pstep.LAUNCHES:
+        pstep.LAUNCHES[name] = 0
+    summary, reg, wall, wdir, store, rounds = run_sched(
+        work / "sched", jobs, LANES, SCHED_LIMIT, "cuda", 2)
+    launches = dict(pstep.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    testcases = sum(s["testcases"] for s in summary.values())
+    for name, _t, _m, _l, runs, _p in jobs:
+        s = summary[name]
+        check(s["done"] and s["testcases"] >= runs,
+              f"phase 31: job {name} did not finish its runs: {s}")
+        report = FleetStore(store, namespace=f"tenant-{name}").verify()
+        check(not (report["torn"] or report["missing"]
+                   or report["orphans"]),
+              f"phase 31: {name}'s store namespace fails fsck: {report}")
+    builds = reg.counter("sched.builds").value
+    preempt = reg.counter("sched.preemptions").value
+    resumes = sum(reg.counter(f"tenant.{j[0]}.resumes").value for j in jobs)
+    check(preempt >= 1 and resumes >= 1,
+          f"phase 31: preemptions {preempt}, resumes {resumes}")
+    check(all(k1_n > 0 for _, k1_n, _ in rounds),
+          f"phase 31: a round launched no K1: {rounds}")
+    check(launches["probe"] == builds,
+          f"phase 31: K2 launched {launches['probe']} times for {builds} "
+          f"placement builds")
+    batches = sum(s["batches"] for s in summary.values())
+    totals = span_totals(reg)
+    legs = totals.get("execute/device-step", 0.0)
+    place = totals.get("sched-place", 0.0)
+    ckpt = totals.get("checkpoint", 0.0)
+    rows = {name: (s["testcases"], s["crashes"], s["preemptions"])
+            for name, s in summary.items()}
+    print(f"phase 31: sched over {LANES} lanes, {len(jobs)} jobs "
+          f"({', '.join(f'{j[0]}={j[3]}' for j in jobs)} lanes), quantum 2: "
+          f"{testcases} testcases in {wall:.2f} s = {testcases / wall:.1f} "
+          f"execs/s; per job (testcases, crashes, preemptions) {rows}; "
+          f"{len(rounds)} rounds, {builds} placement builds "
+          f"(sched-place {place:.2f} s), {preempt} preemptions, {resumes} "
+          f"resumes; K1 {launches['fused_step']} launches "
+          f"({launches['fused_step'] / max(len(rounds), 1):.1f} per round, "
+          f"in every round: {[r[1] for r in rounds]}), K2 "
+          f"{launches['probe']}; checkpoints {ckpt:.2f} s; resume legs "
+          f"{legs:.2f} s = {legs / wall:.3f} of the wall; every job done, "
+          f"store fsck clean; device peak {peak}")
+    # the slice's main path: its launches join the JSON's count
+    k1["launches"] += launches["fused_step"]
+    k2["launches"] += launches["probe"]
+    k1["launches_by_path"]["sched"] = launches["fused_step"]
+    k2["launches_by_path"]["sched"] = launches["probe"]
+    record["sched"] = {
+        "jobs": jobs, "summary": summary, "wall_s": wall,
+        "execs_per_s": testcases / wall, "rounds": rounds,
+        "builds": builds, "preemptions": preempt, "resumes": resumes,
+        "k1_launches": launches["fused_step"],
+        "k2_launches": launches["probe"], "batches": batches,
+        "sched_place_s": place, "checkpoint_s": ckpt, "legs_s": legs,
+        "device_peak": peak,
+        "spans": {k: round(v, 3) for k, v in totals.items()}}
+
+
+# The twins force the oracle burst's any-instruction tier on (the card's
+# default; the CPU's is off): a burst publishes only the decodes it steps
+# through, where the device's decode service also prefetches, so the
+# decode cache's entries (and with them checkpoints and bitmaps, which
+# index coverage by entry) differ between the tiers, though corpus,
+# crashes and covered rips do not.
+TWIN_TIER = ("--burst-any-tier", "on")
+
+
+def sched_twin(device: str) -> tuple:
+    """Phase 32(a): the jobs table at 64 lanes (quotas / 64), small runs,
+    quantum 1, limit 20,000 on `device` -> (sched_outcome, seconds)."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        summary, *_rest = run_sched(Path(tmp) / "twin",
+                                    sched_jobs(64, TWIN_SCHED_RUNS),
+                                    TWIN_LANES, TWIN_LIMIT, device, 1,
+                                    TWIN_TIER)
+        out = sched_outcome(_rest[2], summary)
+    return out, time.perf_counter() - t0
+
+
+def tenancy_fingerprint(cfg, device: str, batches: int = 2) -> dict:
+    """Phase 32(b): each tenant's fingerprint (its local coverage plane,
+    edge bytes, corpus, crash buckets, decoded rips) after `batches`
+    batches of the tenant table `cfg` ((name, target, mutator, lanes)
+    rows), each seeded with its target's seed."""
+    from wtf_tpu_torch.harness.targets import Targets, load_builtin_targets
+    from wtf_tpu_torch.tenancy import (
+        MultiTenantLoop, TenantRuntime, TenantSpec, create_tenancy_backend,
+    )
+    from wtf_tpu_torch.tenancy.state import extract_bits
+
+    load_builtin_targets()
+    targets = Targets.instance()
+    specs = [TenantSpec(n, targets.get(t), targets.get(t).snapshot(), q)
+             for n, t, _m, q in cfg]
+    backend = create_tenancy_backend(specs, sum(row[3] for row in cfg),
+                                     limit=TWIN_LIMIT, device=device,
+                                     fused_step="on")
+    backend.initialize()
+    for i, s in enumerate(specs):
+        with backend.tenant_context(i):
+            s.target.init(backend)
+    runtimes, lane_lo = [], 0
+    for spec, (_n, target, mutator, _q) in zip(specs, cfg):
+        rt = TenantRuntime(spec, seed=5, runs=1 << 20, mutator_name=mutator,
+                           max_len=1024 if target == "demo_pe" else 96,
+                           lane_lo=lane_lo)
+        rt.corpus.add(SCHED_SEEDS[target])
+        runtimes.append(rt)
+        lane_lo += spec.lanes
+    loop = MultiTenantLoop(backend, runtimes, stats_every=1e9)
+    for _ in range(batches):
+        loop.run_one_batch()
+    out = {}
+    for i, rt in enumerate(runtimes):
+        cov, edge = backend.tenant_coverage_state(i)
+        entries = backend.runner.cache.tenant_entries(i)
+        out[rt.name] = (extract_bits(cov, [e[0] for e in entries]).tobytes(),
+                        edge.tobytes(), list(rt.corpus),
+                        sorted(rt.crash_buckets),
+                        sorted(e[1] for e in entries))
+    return out
+
+
+def pe_twin(device: str) -> tuple:
+    """Phase 32(c): a TWIN_PE_LANES-lane demo_pe campaign of
+    TWIN_PE_RUNS runs at limit 20,000 on `device`, the fused step on
+    (as on the card: the engine decides when each lane meets a decode
+    miss, so the decode cache's entry order and with it the coverage
+    bitmap's layout) -> ((outcome), seconds)."""
+    from wtf_tpu_torch import cli
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp) / "target"
+        (root / "inputs").mkdir(parents=True)
+        (root / "inputs" / "seed").write_bytes(SCHED_SEEDS["demo_pe"])
+        a = cli.build_parser().parse_args(
+            ["campaign", "--name", "demo_pe", "--lanes", str(TWIN_PE_LANES),
+             "--runs", str(TWIN_PE_RUNS), "--limit", str(TWIN_LIMIT),
+             "--seed", "5", "--device", device, "--fused-step", "on",
+             *TWIN_TIER, "--target", str(root)])
+        loop = cli.campaign(a)
+        return outcome(loop), time.perf_counter() - t0
+
+
+def phase_tenancy_card_vs_cpu(cpu) -> None:
+    """Phase 32: the sched twins card == cpu, the three-tenant mix ==
+    its solo runs on the card, demo_pe card == cpu."""
+    got, card_s = sched_twin("cuda")
+    want, cpu_s = cpu["sched"].result()
+    bad = {job: [i for i, (a, b) in enumerate(zip(got.get(job, ()), w))
+                 if a != b]
+           for job, w in want.items() if got.get(job) != w}
+    check(not bad and set(got) == set(want),
+          f"phase 32: sched twins differ between card and cpu: {bad} "
+          f"(job: differing fields of (summary, checkpoint, crashes))")
+    ran = ", ".join(f"{k}={v[0]['testcases']}" for k, v in got.items())
+    print(f"phase 32: {TWIN_LANES}-lane sched twin ({ran} testcases), "
+          f"quantum 1: card == cpu on every job's summary, "
+          f"final checkpoint and crash names (card {card_s:.1f} s, cpu "
+          f"{cpu_s:.1f} s in a worker process)")
+    cfg = [("alice", "demo_tlv", "tlv", 4), ("bob", "demo_kernel", "mangle",
+                                             4)]
+    if pe_available():
+        cfg.append(("carol", "demo_pe", "auto", 4))
+    t0 = time.perf_counter()
+    mixed = tenancy_fingerprint(cfg, "cuda")
+    for row in cfg:
+        solo = tenancy_fingerprint([row], "cuda")
+        check(solo[row[0]] == mixed[row[0]],
+              f"phase 32: {row[0]} differs between its solo run and the "
+              f"{len(cfg)}-tenant mix on the card")
+        check(mixed[row[0]][4], f"phase 32: {row[0]} decoded nothing")
+    print(f"phase 32: {len(cfg)}-tenant mix (4 lanes each, 2 batches) == "
+          f"each tenant's solo run on the card: local coverage, edge "
+          f"bytes, corpus, buckets and rips ("
+          f"{time.perf_counter() - t0:.1f} s)")
+    if not pe_available():
+        print("phase 32: demo_pe twin skipped (no DLL)")
+        return
+    got, card_s = pe_twin("cuda")
+    want, cpu_s = cpu["pe"].result()
+    check(got == want, "phase 32: the demo_pe twin differs between card "
+                       "and cpu")
+    print(f"phase 32: {TWIN_PE_LANES}-lane x {TWIN_PE_RUNS}-run demo_pe "
+          f"campaign card == cpu: {len(got[0])} corpus, crashes {got[1]} "
+          f"(card {card_s:.1f} s, cpu {cpu_s:.1f} s in a worker process)")
+
+
 def start_cpu_references(pool, keep: Path, vbreak_input: bytes) -> dict:
-    """The CPU sides of phases 6, 9, 11, 14, 17, 20, 21-23, 24-26 and 28,
-    started together in worker processes once the card's timed phases
+    """The CPU sides of phases 6, 9, 11, 14, 17, 20, 21-23, 24-26, 28 and
+    32, started together in worker processes once the card's timed phases
     are done."""
     import os
 
     # the node twins first: each also waits on a master subprocess, and
     # they are the longest of the jobs
-    jobs = {"node delta=True": (node_twin, "cpu", True),
+    jobs = {"sched": (sched_twin, "cpu"),
+            "node delta=True": (node_twin, "cpu", True),
             "node delta=False": (node_twin, "cpu", False),
             "demo_tlv": (small_campaign, "demo_tlv", "cpu"),
             "demo_tlv window": (small_campaign, "demo_tlv", "cpu", 20000,
@@ -3640,6 +4296,8 @@ def start_cpu_references(pool, keep: Path, vbreak_input: bytes) -> dict:
                               vbreak_input),
             "triage crasher": (triage_twin, "cpu", "crasher", keep,
                                vbreak_input)}
+    if pe_available():
+        jobs = {"pe": (pe_twin, "cpu"), **jobs}
     for name in NEW_TARGETS:
         jobs[name] = (small_campaign, name, "cpu", 100000, (), True)
     threads = max(1, (os.cpu_count() or 1) // len(jobs))
@@ -3652,7 +4310,16 @@ def main(argv=None) -> int:
     ap.add_argument("--out", type=Path, default=None,
                     help="also write the kernels' record and the nvcc "
                          "logs into this directory")
+    ap.add_argument("--pe-dll", type=Path, default=None,
+                    help="a copy of demo_pe's DLL (gle64.vc14.dll) for a "
+                         "machine whose Python has no PyOpenGL wheel; "
+                         "without it phases 30 and 32's demo_pe parts "
+                         "skip there")
     args = ap.parse_args(argv)
+    if args.pe_dll is not None:
+        # read by wtf_tpu_torch/harness/demo_pe.py at import, here and in
+        # the worker processes (spawned with this environment)
+        os.environ["WTF_PE_DLL"] = str(args.pe_dll.resolve())
 
     import torch
 
@@ -3676,6 +4343,7 @@ def main(argv=None) -> int:
     card = phase_build(record)
     phase_probe(dev, k1, k2)
     phase_random(dev, k1)
+    phase_random_stacked(dev, k1, record)
     phase_run()
     stamp("1-4")
     phase_campaign(k1, k2, record)
@@ -3711,11 +4379,15 @@ def main(argv=None) -> int:
     phase_node(k1, k2, record, Path(work.name))
     phase_node_chaos(k1, record, Path(work.name))
     stamp("27-29")
-    # the CPU references of phases 6, 9, 11, 14, 17, 20, 21-23, 24-26 and
-    # 28 run in worker processes, after every timed phase, while this
+    phase_pe_campaign(k1, k2, record, Path(work.name))
+    stamp("30")
+    phase_sched(k1, k2, record, Path(work.name))
+    stamp("31")
+    # the CPU references of phases 6, 9, 11, 14, 17, 20, 21-23, 24-26, 28
+    # and 32 run in worker processes, after every timed phase, while this
     # process runs their card sides
     with ProcessPoolExecutor(
-            max_workers=12, mp_context=multiprocessing.get_context(
+            max_workers=14, mp_context=multiprocessing.get_context(
                 "spawn")) as pool:
         cpu = start_cpu_references(pool, keep, vbreak_input)
         phase_card_vs_cpu(cpu)
@@ -3727,6 +4399,7 @@ def main(argv=None) -> int:
         phase_tier_card_vs_cpu(cpu, card_window)
         phase_triage_card_vs_cpu(cpu, keep, vbreak_input)
         phase_node_card_vs_cpu(cpu)
+        phase_tenancy_card_vs_cpu(cpu)
     work.cleanup()
     stamp("twins")
     record["elapsed_s"] = elapsed

@@ -14,6 +14,7 @@ from typing import Dict, Optional
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from tests.asmhelper import assemble
 from tests.emurunner import CODE_BASE, STACK_TOP
@@ -352,3 +353,16 @@ def checkpoint_at_every_boundary(loop, ckpt_dir, copies_dir) -> None:
         original(print_stats)
 
     loop._heartbeat = heartbeat
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """Run a module's port side on one intra-op thread: the precise step
+    is thousands of tiny CPU ops per instruction, which a thread pool
+    only slows (13 against 18 ms per demo_pe step here)."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)

@@ -478,9 +478,14 @@ class GpuBackend(Backend):
     def lane_result_detail(self, lane: int) -> str:
         return self.runner.lane_errors.get(lane, "")
 
+    def _bp_handler(self, lane: int, rip: int):
+        """The handler armed at `rip` for `lane` (a multi-tenant backend,
+        wtf_tpu_torch/tenancy, keys handlers by the lane's tenant)."""
+        return self.breakpoints.get(rip)
+
     def _dispatch_bp(self, runner: Runner, view: HostView, lane: int) -> None:
         rip = view.get_rip(lane)
-        handler = self.breakpoints.get(rip)
+        handler = self._bp_handler(lane, rip)
         if handler is None:
             runner.lane_errors[lane] = f"unexpected breakpoint @ {rip:#x}"
             view.set_status(lane, StatusCode.HARD_ERROR)
@@ -611,6 +616,15 @@ class GpuBackend(Backend):
 
     def set_reg(self, idx: int, value: int) -> None:
         self._ensure_view().set_reg(self._lane, idx, value)
+
+    def get_xmm(self, idx: int) -> int:
+        r = self._ensure_view().r["xmm"]
+        return int(r[self._lane, idx, 0]) | (int(r[self._lane, idx, 1]) << 64)
+
+    def set_xmm(self, idx: int, value: int) -> None:
+        r = self._ensure_view().r["xmm"]
+        r[self._lane, idx, 0] = np.uint64(value & MASK64)
+        r[self._lane, idx, 1] = np.uint64((value >> 64) & MASK64)
 
     def get_rip(self) -> int:
         return self._ensure_view().get_rip(self._lane)

@@ -1,5 +1,5 @@
-"""CLI entry point: `python -m wtf_tpu_torch {run|campaign|triage|fuzz|master|
-fleet|status|snapshot}`.
+"""CLI entry point: `python -m wtf_tpu_torch {run|campaign|sched|triage|fuzz|
+master|fleet|status|snapshot}`.
 
 The counterpart of wtf_tpu/cli.py for the single-device subcommands and the
 master/client plane, with the JAX package's flag names and meanings for the
@@ -14,6 +14,10 @@ subset it supports plus `--device`:
             `--runs 0` is the minset: replay inputs/ (and any prior
             outputs/) once and leave outputs/ holding exactly the
             coverage-increasing subset
+  sched     the multi-tenant scheduler (wtf_tpu_torch/tenancy): a jobs
+            table placed onto one device batch by priority and lane
+            quota, each job a campaign on its own lane range of a stacked
+            multi-snapshot image, preempted through per-tenant checkpoints
   triage    batched crash triage on the device batch (wtf_tpu_torch/triage):
             minimize (crash bisection), distill (exact-attribution corpus
             minset), vbreak (virtual-breakpoint replay)
@@ -30,12 +34,17 @@ subset it supports plus `--device`:
   snapshot  convert a snapshot between mem.npz and a Windows crash dump
             (mem.dmp, bitmap or full)
 
-`run`, `campaign`, `triage` and `fuzz` run on a CUDA device by default
-(`--device cuda`) and raise when there is none; `--device cpu` runs the
-plain PyTorch versions of the kernels on the CPU.  `master`, `fleet` and
-`status` do no device work, as in the JAX package.  `triage vbreak
---backend emu` and `fuzz --backend emu` run on the single-step oracle
-instead (`--backend gpu`, the default, is the device batch).
+`run`, `campaign`, `sched`, `triage` and `fuzz` run on a CUDA device by
+default (`--device cuda`) and raise when there is none; `--device cpu`
+runs the plain PyTorch versions of the kernels on the CPU.  `master`,
+`fleet` and `status` do no device work, as in the JAX package.  `run`,
+`campaign`, `triage vbreak` and `fuzz` take `--backend emu` to run on the
+single-step oracle instead (`--backend gpu`, the default, is the device
+batch; the JAX CLI's `run` defaults to its oracle).  `--burst-any-tier
+on|off` forces the oracle burst's any-instruction tier (default: on for
+CUDA, off on the CPU).  `campaign --mutator byte|mangle|tlv` picks a host engine by name,
+and `campaign --store DIR` journals finds and crashes in a
+content-addressed store (wtf_tpu_torch/fleet/store).
 `--fused-step on|auto` drives the fused step kernel (interp/pstep.py); on
 a CUDA device both raise when it cannot be built.  `--device-decode`
 services decode-cache misses on the device (interp/devdec.py).  `--state
@@ -117,6 +126,12 @@ def _add_engine_args(p: argparse.ArgumentParser) -> None:
                         "= on for a CUDA device, off on the CPU")
     p.add_argument("--fused-k", type=int, default=32,
                    help="instructions per lane per fused launch")
+    p.add_argument("--burst-any-tier", choices=("auto", "on", "off"),
+                   default="auto",
+                   help="the oracle burst's any-instruction tier for "
+                        "chronically diverting lanes.  auto = the device "
+                        "default (on for CUDA, off on the CPU); on/off "
+                        "force it")
     p.add_argument("--device-decode", action="store_true",
                    help="device-resident x86 decode (interp/devdec.py): "
                         "megachunk windows service decode-cache misses on "
@@ -147,6 +162,18 @@ def _supervise_kwargs(args) -> dict:
     return {}
 
 
+def _tuning_kwargs(args) -> dict:
+    """The GpuBackend's engine settings from the engine args: the device,
+    the fused step, the burst tier (only when forced), device decode and
+    the supervisor."""
+    kwargs = dict(device=args.device, fused_step=args.fused_step,
+                  fused_k=args.fused_k, device_decode=args.device_decode,
+                  **_supervise_kwargs(args))
+    if args.burst_any_tier != "auto":
+        kwargs["burst_any_tier"] = args.burst_any_tier == "on"
+    return kwargs
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="wtf_tpu_torch",
@@ -156,6 +183,9 @@ def build_parser() -> argparse.ArgumentParser:
 
     run = sub.add_parser("run", help="replay testcases / write traces")
     _add_common(run)
+    run.add_argument("--backend", choices=("gpu", "emu"), default="gpu",
+                     help="gpu = lane 0 of the device batch on --device "
+                          "(default); emu = the single-step oracle")
     run.add_argument("--input", type=Path, required=True,
                      help="testcase file or directory")
     run.add_argument("--limit", type=int, default=0,
@@ -173,6 +203,10 @@ def build_parser() -> argparse.ArgumentParser:
     camp = sub.add_parser(
         "campaign", help="single-process fuzz loop over one device batch")
     _add_common(camp)
+    camp.add_argument("--backend", choices=("gpu", "emu"), default="gpu",
+                      help="gpu = the device batch on --device (default); "
+                           "emu = the single-step oracle, one testcase at "
+                           "a time")
     camp.add_argument("--limit", type=int, default=0)
     camp.add_argument("--runs", type=int, default=0,
                       help="testcase budget; 0 = minset: replay inputs/ "
@@ -181,10 +215,12 @@ def build_parser() -> argparse.ArgumentParser:
     camp.add_argument("--max_len", type=int, default=1024 * 1024)
     camp.add_argument("--seed", type=int, default=0)
     camp.add_argument("--lanes", type=int, default=64)
-    camp.add_argument("--mutator", choices=("auto", "devmangle"),
+    camp.add_argument("--mutator",
+                      choices=("auto", "byte", "mangle", "tlv", "devmangle"),
                       default="auto",
                       help="mutation engine: auto = the target's custom "
-                           "mutator, else the host mangle engine. "
+                           "mutator, else the best host mangle engine; "
+                           "byte, mangle, tlv = that host engine. "
                            "devmangle = the device-resident engine "
                            "(wtf_tpu_torch/devmut): the whole batch is "
                            "generated on the device from the corpus slab "
@@ -214,6 +250,48 @@ def build_parser() -> argparse.ArgumentParser:
                       help="resume from a checkpoint dir: coverage, crash "
                            "set, corpus, RNG and devmut streams restore "
                            "bit-identically to the uninterrupted run")
+    camp.add_argument("--store", type=Path, default=None, metavar="DIR",
+                      help="content-addressed corpus/crash store root "
+                           "(wtf_tpu_torch/fleet/store); outputs/ and "
+                           "crashes/ become flat views of it")
+
+    sched = sub.add_parser(
+        "sched", help="multi-tenant campaign scheduler (wtf_tpu_torch/"
+                      "tenancy): a jobs table placed onto ONE device batch "
+                      "by priority and lane quota, preempted via "
+                      "per-tenant checkpoints")
+    sched.add_argument("--jobs", type=Path, required=True,
+                       help='jobs table: {"jobs": [{"name", "target", '
+                            '"lanes", "runs", "priority", "seed", '
+                            '"mutator", "max_len", "inputs", '
+                            '"checkpoint_every"}, ...]}')
+    sched.add_argument("--workdir", type=Path, required=True,
+                       help="per-job state root: <workdir>/<job>/"
+                            "{checkpoint,crashes}.  Checkpoints carry "
+                            "every bit a job needs across placements, "
+                            "so a killed sched run resumes from here")
+    sched.add_argument("--lanes", type=int, default=64,
+                       help="total lane budget of the shared batch")
+    sched.add_argument("--limit", type=int, default=0,
+                       help="instruction budget per testcase (applies "
+                            "to every job of the shared batch)")
+    sched.add_argument("--quantum", type=int, default=4,
+                       help="batches per scheduling round; at each "
+                            "quantum boundary unfinished placed jobs "
+                            "checkpoint, and jobs left waiting preempt "
+                            "them in the next placement")
+    sched.add_argument("--max-rounds", type=int, default=1 << 12)
+    sched.add_argument("--target-module", action="append", default=[],
+                       help="extra python module(s) to import for "
+                            "target registration")
+    sched.add_argument("--telemetry-dir", type=Path, default=None,
+                       help="events.jsonl with tenant-tagged records + "
+                            "sched-round/sched-preempt/sched-complete")
+    sched.add_argument("--store", type=Path, default=None, metavar="DIR",
+                       help="content-addressed store root; each job "
+                            "gets its own tenant-<name> namespace "
+                            "(wtf_tpu_torch/fleet/store)")
+    _add_engine_args(sched)
 
     triage = sub.add_parser(
         "triage", help="batched crash triage on the device batch "
@@ -458,10 +536,7 @@ def build_backend(target, args, registry: Registry, events=NULL,
     else:
         backend = GpuBackend(snapshot, n_lanes=args.lanes, limit=args.limit,
                              registry=registry, events=events,
-                             device=args.device, fused_step=args.fused_step,
-                             fused_k=args.fused_k,
-                             device_decode=args.device_decode,
-                             **_supervise_kwargs(args))
+                             **_tuning_kwargs(args))
     with registry.spans.span("init"):
         backend.initialize()
     if init_target:
@@ -505,10 +580,13 @@ def replay(args, registry: Optional[Registry] = None, events=NULL):
             result = backend.run()
             if isinstance(result, Timedout):
                 backend.revoke_last_new_coverage()  # client.cc:122-125
-            m = backend.runner.machine
+            if args.backend == "emu":
+                rip, icount = backend.cpu.rip, backend.cpu.icount
+            else:
+                m = backend.runner.machine
+                rip, icount = int(m.rip[0]), int(m.icount[0])
             runs.append(ReplayRun(path, result, backend.last_new_coverage(),
-                                  int(m.rip[0]) & (1 << 64) - 1,
-                                  int(m.icount[0])))
+                                  rip & (1 << 64) - 1, icount))
             target.restore()
             backend.restore()
     return backend, runs
@@ -571,21 +649,27 @@ def build_campaign(args, registry: Optional[Registry] = None, events=NULL):
     registry = registry if registry is not None else Registry()
     backend, paths = build_backend(target, args, registry, events)
     rng = random.Random(args.seed or None)
+    store = None
+    if args.store:
+        from wtf_tpu_torch.fleet.store import FleetStore
+
+        store = FleetStore(args.store, registry=registry, events=events)
     if args.runs == 0:
         corpus = Corpus(rng=rng)
     elif paths.inputs and Path(paths.inputs).is_dir():
         corpus = Corpus.load_dir(paths.inputs, rng=rng,
                                  outputs_dir=paths.outputs)
+        corpus.store = store
     else:
-        corpus = Corpus(outputs_dir=paths.outputs, rng=rng)
-    if args.mutator == "devmangle":
-        mutator = create_mutator("devmangle", rng, args.max_len)
-    else:
+        corpus = Corpus(outputs_dir=paths.outputs, rng=rng, store=store)
+    if args.mutator == "auto":
         mutator = mutator_for(target, rng, args.max_len)
+    else:
+        mutator = create_mutator(args.mutator, rng, args.max_len)
     loop = FuzzLoop(backend, target, mutator, corpus,
                     crashes_dir=paths.crashes, registry=registry,
                     events=events, checkpoint_dir=ckpt_dir,
-                    checkpoint_every=args.checkpoint_every,
+                    checkpoint_every=args.checkpoint_every, store=store,
                     megachunk=args.megachunk)
     if args.resume:
         from wtf_tpu_torch.resume import load_campaign, restore_campaign
@@ -665,6 +749,43 @@ def cmd_campaign(args) -> int:
         print(loop.stats.line(len(loop.corpus), loop._coverage()))
         loop.backend.print_run_stats()
         return 0 if loop.stats.crashes == 0 else 2
+
+
+def sched(args, registry: Optional[Registry] = None, events=NULL):
+    """`sched`: place the jobs table onto one device batch and run it to
+    completion (wtf_tpu_torch/tenancy/sched.py).  Returns (Scheduler,
+    {job name: summary})."""
+    from wtf_tpu_torch.tenancy.sched import Scheduler, load_jobs
+
+    load_builtin_targets()
+    for module in args.target_module:
+        importlib.import_module(module)
+    jobs = load_jobs(args.jobs)
+    registry = registry if registry is not None else Registry()
+    store = None
+    if args.store:
+        from wtf_tpu_torch.fleet.store import FleetStore
+
+        store = FleetStore(args.store, registry=registry, events=events)
+    scheduler = Scheduler(jobs, n_lanes=args.lanes, workdir=args.workdir,
+                          limit=args.limit, quantum=args.quantum,
+                          registry=registry, events=events,
+                          backend_tuning=_tuning_kwargs(args), store=store)
+    return scheduler, scheduler.run(max_rounds=args.max_rounds)
+
+
+def cmd_sched(args) -> int:
+    with _telemetry_for(args) as (registry, events):
+        scheduler, summary = sched(args, registry, events)
+    crashes = 0
+    for name, s in summary.items():
+        crashes += s["crashes"]
+        state = ("done" if s["done"]
+                 else f"stopped at batch {s['batches']}")
+        print(f"[sched] {name}: {state}, {s['testcases']} testcases, "
+              f"{s['crashes']} crashes, {s['preemptions']} preemptions")
+    print(f"[sched] {scheduler.rounds} rounds over {args.lanes} lanes")
+    return 0 if crashes == 0 else 2
 
 
 # ---------------------------------------------------------------------------
@@ -1108,9 +1229,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         wlog.handlers[:] = [handler]
         wlog.setLevel(logging.INFO)
         wlog.propagate = False
-    return {"run": cmd_run, "campaign": cmd_campaign, "triage": cmd_triage,
-            "fuzz": cmd_fuzz, "master": cmd_master, "fleet": cmd_fleet,
-            "status": cmd_status,
+    return {"run": cmd_run, "campaign": cmd_campaign, "sched": cmd_sched,
+            "triage": cmd_triage, "fuzz": cmd_fuzz, "master": cmd_master,
+            "fleet": cmd_fleet, "status": cmd_status,
             "snapshot": cmd_snapshot}[args.subcommand](args)
 
 

@@ -89,14 +89,20 @@ class DevMangleMutator(Mutator):
         self.spec = spec
         self.runner = runner
         self.n_lanes = runner.n_lanes
-        # input-region pfns through lane 0's page tables — the snapshot
-        # mapping is static, so translate ONCE at bind time and the
-        # insert seam never page-walks again
+        # input-region pfns through the first lane's page tables — the
+        # snapshot mapping is static, so translate ONCE at bind time and
+        # the insert seam never page-walks again
         page = 4096
         n_pages = (self.max_len + page - 1) // page
         view = runner.view()
-        self.pfns = [view.translate(0, spec.gva + i * page) >> 12
+        lane = self.first_lane()
+        self.pfns = [view.translate(lane, spec.gva + i * page) >> 12
                      for i in range(n_pages)]
+
+    def first_lane(self) -> int:
+        """The first lane this engine fills (a tenant-scoped engine,
+        wtf_tpu_torch/tenancy, fills a lane range of a mixed batch)."""
+        return 0
 
     def seed_from(self, corpus) -> int:
         """Load a host Corpus' testcases into the device slab (campaign

@@ -6,9 +6,10 @@ and the megachunk window (wtf_tpu_torch/fuzz/megachunk.py), with
 supervision (wtf_tpu_torch/supervise: every batch under the snapshot ->
 dispatch -> recover-and-replay wrapper) and crash-safe checkpoints
 (wtf_tpu_torch/resume: `checkpoint_every` batches into `checkpoint_dir`),
-and the minset mode (`minset`, on the triage replay core).  The fleet
-store, resharding and the --xprof-dir profiler window are not part of
-it.
+the minset mode (`minset`, on the triage replay core) and the fleet
+store (wtf_tpu_torch/fleet/store: finds and crashes journaled
+content-addressed, outputs/ and crashes/ their flat views).  Resharding
+and the --xprof-dir profiler window are not part of it.
 
 This is the single-process campaign loop — the reference needs a master
 process + N client processes even on one machine (README.md:34-110); here
@@ -155,6 +156,7 @@ class FuzzLoop:
         events=None,
         checkpoint_dir: Optional[Path] = None,
         checkpoint_every: int = 0,
+        store=None,
         megachunk: int = 0,
     ):
         self.backend = backend
@@ -214,6 +216,12 @@ class FuzzLoop:
         # one checkpoint interval, and --resume replays bit-identically
         self.checkpoint_dir = Path(checkpoint_dir) if checkpoint_dir else None
         self.checkpoint_every = checkpoint_every
+        # content-addressed corpus/crash store (wtf_tpu_torch/fleet/store):
+        # when attached, finds and crashes are journaled there and the
+        # flat outputs/ and crashes/ dirs become hardlink views
+        self.store = store
+        if store is not None and getattr(corpus, "store", None) is None:
+            corpus.store = store
         # self-healing device runtime (wtf_tpu_torch/supervise): when the
         # backend's supervisor is armed, every batch runs under the
         # snapshot -> dispatch -> (recover + replay)* -> post_batch
@@ -441,8 +449,17 @@ class FuzzLoop:
             try:
                 # atomic (tmp+fsync+rename): a kill mid-save must not
                 # leave a torn repro, and a full disk must not abort the
-                # campaign from inside the harvest loop
-                atomic_write_bytes(self.crashes_dir / name, data)
+                # campaign from inside the harvest loop.  With a store
+                # the blob is journaled content-addressed (bucket-
+                # deduped) and crashes/<name> becomes a view of it.
+                if self.store is not None:
+                    digest, _ = self.store.put(data, kind="crash",
+                                               name=name, bucket=bucket)
+                    if self.store.has(digest):
+                        self.store.link_into(self.crashes_dir, digest,
+                                             name=name)
+                else:
+                    atomic_write_bytes(self.crashes_dir / name, data)
             except OSError as e:
                 import logging
 
@@ -599,8 +616,12 @@ class FuzzLoop:
                                        - before, 4))
 
     def _coverage(self) -> int:
-        """Bits set in the aggregate coverage bitmap."""
+        """Bits set in the aggregate coverage bitmap (the oracle backend,
+        which keeps no bitmap: its aggregate rip set's size)."""
         import numpy as np
 
-        words = self.backend._agg_cov.cpu().numpy()
+        agg = getattr(self.backend, "_agg_cov", None)
+        if agg is None:
+            return len(getattr(self.backend, "_aggregate_cov", ()))
+        words = agg.cpu().numpy()
         return int(np.count_nonzero(np.unpackbits(words.view(np.uint8))))

@@ -109,9 +109,10 @@ def register_target(**kwargs) -> Target:
 def load_builtin_targets() -> None:
     """Import the in-tree demo target modules so their self-registration
     runs (the reference compiles fuzzer_*.cc into the binary; our
-    equivalent is importing the harness modules).  The port carries
-    every demo but demo_pe, which waits for its DLL."""
+    equivalent is importing the harness modules).  demo_pe registers
+    whether or not its DLL is present; `demo_pe.available()` says if it
+    can build its snapshot."""
     from wtf_tpu_torch.harness import (  # noqa: F401
-        demo_fs, demo_ioctl, demo_kernel, demo_maze, demo_spin, demo_tlv,
-        demo_usermode,
+        demo_fs, demo_ioctl, demo_kernel, demo_maze, demo_pe, demo_spin,
+        demo_tlv, demo_usermode,
     )

@@ -27,8 +27,13 @@ missing lanes' code windows in one device pass (`_gather_code_windows`).
 Every device dispatch of the runner — the precise chunk, K1 and its
 resume leg, the insert and the code-window gather — goes through the
 backend's supervisor (wtf_tpu_torch/supervise), which is inert unless
-supervision or a scripted fault is armed.  The tenancy of the JAX
-runner is not part of the port yet.
+supervision or a scripted fault is armed.
+
+A heterogeneous batch (wtf_tpu_torch/tenancy, the `tenants=` kwarg) runs
+several snapshots behind one stacked image: every lane carries its
+tenant's row selector, and every host service — decode, SMC update,
+breakpoint lookup, oracle step, exception delivery, page read — routes
+through the lane's tenant (`tenant_of`, `cpu0_of`, `lane_physmem`).
 """
 
 from __future__ import annotations
@@ -175,7 +180,8 @@ class HostView:
 
     # -- physical memory -------------------------------------------------
     def _base_page(self, lane: int, pfn: int) -> bytes:
-        return self.runner.physmem.host_read(pfn << PAGE_SHIFT, PAGE_SIZE)
+        return self.runner.lane_physmem(lane).host_read(pfn << PAGE_SHIFT,
+                                                        PAGE_SIZE)
 
     def _device_overlay_page(self, lane: int, pfn: int) -> Optional[bytes]:
         slots = np.nonzero(self._ov_pfn[lane] == pfn)[0]
@@ -460,7 +466,8 @@ def _apply_page_writes(m: Machine, items) -> None:
 
 def device_insert_impl(m: Machine, words: torch.Tensor, lens: torch.Tensor,
                        pfns: torch.Tensor, gva: int, len_gpr: int,
-                       ptr_gpr: int) -> None:
+                       ptr_gpr: int,
+                       active: Optional[torch.Tensor] = None) -> None:
     """Land a device-generated batch in every lane, in place: `words`
     (int32[L, W], u32 bits) / `lens` (int32[L]) fill n_pages = len(pfns)
     FRESH overlay rows per lane from the lane's current `count` (rows a
@@ -473,7 +480,13 @@ def device_insert_impl(m: Machine, words: torch.Tensor, lens: torch.Tensor,
     the input region) are retired first, so the testcase wins — lookups
     take the first matching row; the retired row leaks until restore.  A
     lane without n_pages free rows gets none, is flagged in `overflow`,
-    and a RUNNING one becomes OVERLAY_FULL."""
+    and a RUNNING one becomes OVERLAY_FULL.
+
+    `active` (bool[L], the masked insert of wtf_tpu_torch/tenancy) limits
+    the insert to one tenant's lanes: inactive lanes keep their overlay
+    rows, counters, status and ABI registers untouched, so per-tenant
+    device batches land with one call per tenant.  The megachunk window
+    inserts every lane (no mask)."""
     ov = m.overlay
     n_lanes, n_words = words.shape
     n_pages = pfns.shape[0]
@@ -484,25 +497,35 @@ def device_insert_impl(m: Machine, words: torch.Tensor, lens: torch.Tensor,
     rows = w.contiguous().view(torch.int64).view(n_lanes, n_pages, -1)
     capacity = ov.capacity
     dead = (ov.pfn[:, :, None] == pfns[None, None, :]).any(-1)
+    if active is not None:
+        dead &= active[:, None]
     pfn0 = torch.where(dead, -1, ov.pfn)
     start = ov.count.long()
     can = start + n_pages <= capacity
+    ok = can if active is None else can & active
+    full = ~can if active is None else ~can & active
     li = torch.arange(n_lanes, device=m.device)[:, None]
     ridx = (start[:, None] + torch.arange(n_pages, device=m.device)
             ).clamp(max=capacity - 1)
-    sel = can[:, None]
+    sel = ok[:, None]
     ov.data[li, ridx] = torch.where(sel[..., None], rows, ov.data[li, ridx])
     ov.valid[li, ridx] = torch.where(sel[..., None], 1, ov.valid[li, ridx]
                                      ).to(torch.uint8)
     pfn0[li, ridx] = torch.where(sel, pfns.expand(n_lanes, n_pages),
                                  pfn0[li, ridx])
     ov.pfn.copy_(pfn0)
-    ov.count.copy_(torch.where(can, start + n_pages, start))
-    ov.overflow |= ~can
-    m.status.copy_(torch.where(~can & (m.status == int(StatusCode.RUNNING)),
+    ov.count.copy_(torch.where(ok, start + n_pages, start))
+    ov.overflow |= full
+    m.status.copy_(torch.where(full & (m.status == int(StatusCode.RUNNING)),
                                int(StatusCode.OVERLAY_FULL), m.status))
-    m.gpr[:, len_gpr] = lens.long()
-    m.gpr[:, ptr_gpr] = ints.s64(gva)
+    if active is None:
+        m.gpr[:, len_gpr] = lens.long()
+        m.gpr[:, ptr_gpr] = ints.s64(gva)
+    else:
+        m.gpr[:, len_gpr] = torch.where(active, lens.long(),
+                                        m.gpr[:, len_gpr])
+        m.gpr[:, ptr_gpr] = torch.where(active, ints.s64(gva),
+                                        m.gpr[:, ptr_gpr])
 
 
 class Runner:
@@ -528,6 +551,7 @@ class Runner:
         device="cuda",
         device_decode: bool = False,
         supervisor: Optional[Supervisor] = None,
+        tenants=None,
     ):
         self.registry = registry if registry is not None else Registry()
         self.events = events if events is not None else NULL
@@ -544,15 +568,42 @@ class Runner:
         self.physmem = snapshot.physmem
         self.n_lanes = n_lanes
         self.cache = DecodeCache(capacity=uop_capacity)
-        self.image = lane_image(snapshot.physmem.image(self.device), n_lanes)
-        self.machine = machine_init(snapshot.cpu, n_lanes, uop_capacity,
-                                    overlay_slots, edge_bits, self.device)
-        self.template = machine_init(snapshot.cpu, n_lanes, uop_capacity,
-                                     0, edge_bits, self.device)
+        if tenants is None:
+            self.image = lane_image(snapshot.physmem.image(self.device),
+                                    n_lanes)
+            self.machine = machine_init(snapshot.cpu, n_lanes, uop_capacity,
+                                        overlay_slots, edge_bits,
+                                        self.device)
+            self.template = machine_init(snapshot.cpu, n_lanes,
+                                         uop_capacity, 0, edge_bits,
+                                         self.device)
+            self.tenant_of_lane = np.zeros(n_lanes, dtype=np.int32)
+            self._physmems = [snapshot.physmem]
+            self._cpu0s = [snapshot.cpu]
+        else:
+            # heterogeneous batch (wtf_tpu_torch/tenancy): per-lane base-
+            # image ids over a stacked image table; per-lane machine state
+            # initialized from each tenant's CpuState.  `snapshot` is the
+            # table's primary (tenant 0) for the compat surfaces above.
+            from wtf_tpu_torch.tenancy.image import build_batch_state
+
+            built = build_batch_state(tenants, n_lanes, uop_capacity,
+                                      overlay_slots, edge_bits, self.device)
+            self.image = built.image
+            self.machine = built.machine
+            self.template = built.template
+            self.tenant_of_lane = built.tenant_of_lane
+            self._physmems = built.physmems
+            self._cpu0s = built.cpus
         self.limit = 0
         self.chunk_steps = chunk_steps
+        # Auto mode delivers guest exceptions when a snapshot carries an
+        # IDT; a heterogeneous batch gates per lane (`_deliver_lane`), so
+        # an IDT-less tenant's faults stay terminal exactly as they do
+        # solo.
         if deliver_exceptions is None:
-            deliver_exceptions = snapshot.cpu.idtr.limit > 0
+            deliver_exceptions = any(
+                cpu.idtr.limit > 0 for cpu in self._cpu0s)
         self.deliver_exceptions = deliver_exceptions
         # Fused fast path (interp/pstep.py): per chunk the runner launches
         # the fused kernel, then a short precise resume leg for the lanes
@@ -609,12 +660,21 @@ class Runner:
         self.stats["max_chunk_steps"] = chunk_steps
         self.supervisor.attach_runner(self)
 
-    # single-image batches: every lane is tenant 0
+    # -- per-lane tenant routing (single-image batches are tenant 0) -------
     def tenant_of(self, lane: int) -> int:
-        return 0
+        return int(self.tenant_of_lane[lane])
 
     def cpu0_of(self, lane: int) -> CpuState:
-        return self.snapshot.cpu
+        """The lane's snapshot CpuState (oracle fallback segments/x87,
+        IDT/TSS anchors for exception delivery)."""
+        return self._cpu0s[self.tenant_of(lane)]
+
+    def lane_physmem(self, lane: int):
+        """The lane's base-image PhysMem (host-side page reads)."""
+        return self._physmems[self.tenant_of(lane)]
+
+    def _deliver_lane(self, lane: int) -> bool:
+        return self.cpu0_of(lane).idtr.limit > 0
 
     def device_tab(self):
         return self.cache.device(self.device)
@@ -650,26 +710,30 @@ class Runner:
 
     # -- mutate-on-device seams (wtf_tpu_torch/devmut) ---------------------
     def device_insert(self, words, lens, pfns, gva: int, len_gpr: int,
-                      ptr_gpr: int) -> None:
+                      ptr_gpr: int, active=None) -> None:
         """Insert a device-generated batch without a host round trip:
         `words` / `lens` (typically straight from devmut's generate) land
-        in fresh overlay rows of every lane and the target's ABI registers
-        are set (device_insert_impl).  Call after the push of any staged
-        host writes, so the testcase wins an overlap."""
+        in fresh overlay rows of every lane — or, with `active` (bool[L]),
+        of the active lanes only — and the target's ABI registers are set
+        (device_insert_impl).  Call after the push of any staged host
+        writes, so the testcase wins an overlap."""
         n_pages = len(pfns)
         if n_pages > self.machine.overlay.capacity:
             raise ValueError(
                 f"device-insert region spans {n_pages} pages but lanes "
                 f"have only {self.machine.overlay.capacity} overlay slots "
                 f"— raise overlay_slots or shrink the mutator/spec max_len")
+        mask = None if active is None else torch.from_numpy(
+            np.asarray(active, dtype=bool)).to(self.device)
         self.supervisor.dispatch(
             "device-insert", self._insert, words, lens,
             torch.tensor(pfns, dtype=torch.int32, device=self.device),
-            gva, len_gpr, ptr_gpr, sync=_status)
+            gva, len_gpr, ptr_gpr, mask, sync=_status)
 
-    def _insert(self, words, lens, pfns, gva, len_gpr, ptr_gpr) -> Machine:
+    def _insert(self, words, lens, pfns, gva, len_gpr, ptr_gpr,
+                active=None) -> Machine:
         device_insert_impl(self.machine, words, lens, pfns, gva, len_gpr,
-                           ptr_gpr)
+                           ptr_gpr, active)
         return self.machine
 
     def devmut_generate(self, rounds: int, data, lens, cumw, seeds):
@@ -786,7 +850,7 @@ class Runner:
                     lane, rip + max(uop.length - 1, 0)) >> PAGE_SHIFT
             except HostFault:
                 pfn1 = pfn0
-        self.cache.add(rip, uop, pfn0, pfn1)
+        self.cache.add(rip, uop, pfn0, pfn1, tenant=self.tenant_of(lane))
         self.stats["decodes"] += 1
         self._prefetch_block(view, lane, uop, rip)
         return True
@@ -817,12 +881,13 @@ class Runner:
             return (nxt,)
 
         budget = self.PREFETCH_BUDGET
+        tenant = self.tenant_of(lane)
         work = list(succs(uop, rip))
         while work and budget > 0:
             if self.cache.count >= self.cache.capacity - self._PREFETCH_MARGIN:
                 return
             at = work.pop()
-            if self.cache.has(at):
+            if self.cache.has(at, tenant):
                 continue
             try:
                 window = view.virt_read(lane, at, 15)
@@ -837,7 +902,7 @@ class Runner:
                     lane, at + max(u2.length - 1, 0)) >> PAGE_SHIFT
             except HostFault:
                 pfn1 = pfn0
-            self.cache.add(at, u2, pfn0, pfn1)
+            self.cache.add(at, u2, pfn0, pfn1, tenant=tenant)
             self.stats["decodes_prefetched"] += 1
             budget -= 1
             work.extend(succs(u2, at))
@@ -845,15 +910,16 @@ class Runner:
     def _service_decode(self, view: HostView, lanes: List[int]) -> None:
         windows = (self._gather_code_windows(view, lanes)
                    if self.device_decode else {})
-        done: Set[int] = set()
+        done: Set[Tuple[int, int]] = set()
         for lane in lanes:
             rip = view.get_rip(lane)
-            if rip not in done:
-                if not self.cache.has(rip):
+            key = (self.tenant_of(lane), rip)
+            if key not in done:
+                if not self.cache.has(rip, key[0]):
                     if not self._decode_at(view, lane, rip,
                                            prefetched=windows.get(lane)):
                         continue
-                done.add(rip)
+                done.add(key)
             view.set_status(lane, StatusCode.RUNNING)
 
     def _gather_code_windows(self, view: HostView, lanes: List[int]):
@@ -866,12 +932,13 @@ class Runner:
         from wtf_tpu_torch.interp import devdec
 
         want: List[int] = []
-        seen: Set[int] = set()
+        seen: Set[Tuple[int, int]] = set()
         for lane in lanes:
             rip = view.get_rip(lane)
-            if rip in seen or self.cache.has(rip):
+            key = (self.tenant_of(lane), rip)
+            if key in seen or self.cache.has(rip, key[0]):
                 continue
-            seen.add(rip)
+            seen.add(key)
             want.append(lane)
         if not want:
             return {}
@@ -891,7 +958,7 @@ class Runner:
     def _service_smc(self, view: HostView, lanes: List[int]) -> None:
         for lane in lanes:
             rip = view.get_rip(lane)
-            skey = (0, rip)
+            skey = (self.tenant_of(lane), rip)
             n = self._smc_updates.get(skey, 0) + 1
             self._smc_updates[skey] = n
             if n > 16:
@@ -911,14 +978,14 @@ class Runner:
                     lane, rip + max(uop.length - 1, 0)) >> PAGE_SHIFT
             except HostFault:
                 pfn1 = pfn0
-            self.cache.update(rip, uop, pfn0, pfn1)
+            self.cache.update(rip, uop, pfn0, pfn1, tenant=skey[0])
             self.stats["smc_updates"] += 1
             view.set_status(lane, StatusCode.RUNNING)
 
     def _fallback_step(self, view: HostView, lane: int) -> None:
         """Single-step one lane on the EmuCpu oracle."""
         self.stats["fallbacks"] += 1
-        uop = self.cache.uop_at(view.get_rip(lane))
+        uop = self.cache.uop_at(view.get_rip(lane), self.tenant_of(lane))
         opclass = (_OPC_NAMES.get(uop.opc, f"opc{uop.opc}")
                    if uop is not None else "undecoded")
         by_class = self.stats["fallbacks_by_opclass"]
@@ -977,7 +1044,8 @@ class Runner:
     def _entry_at(self, view: HostView, lane: int, rip: int):
         """(uop-table entry index, uop) at `rip`, publishing the decode on
         a miss; None when the bytes can't be fetched or don't decode."""
-        uop = self.cache.uop_at(rip)
+        tenant = self.tenant_of(lane)
+        uop = self.cache.uop_at(rip, tenant)
         if uop is None:
             try:
                 window = view.virt_read(lane, rip, 15)
@@ -992,8 +1060,8 @@ class Runner:
                     lane, rip + max(uop.length - 1, 0)) >> PAGE_SHIFT
             except HostFault:
                 pfn1 = pfn0
-            self.cache.add(rip, uop, pfn0, pfn1)
-        return self.cache.entry_index(rip), uop
+            self.cache.add(rip, uop, pfn0, pfn1, tenant=tenant)
+        return self.cache.entry_index(rip, tenant), uop
 
     def _is_oracle_uop(self, uop) -> bool:
         return (uop.opc in self._ORACLE_OPCS
@@ -1018,7 +1086,7 @@ class Runner:
             if view.get_status(lane) != StatusCode.RUNNING:
                 return
             rip = view.get_rip(lane)
-            if self.cache.has_breakpoint(rip):
+            if self.cache.has_breakpoint(rip, self.tenant_of(lane)):
                 return
             entry = self._entry_at(view, lane, rip)
             if entry is None:
@@ -1111,6 +1179,8 @@ class Runner:
         self._fallback_streak = {}
         spans = self.registry.spans
         undeliverable: Set[int] = set()
+        fault_statuses = (int(StatusCode.PAGE_FAULT),
+                          int(StatusCode.DIVIDE_ERROR))
         for _ in range(max_chunks):
             if self.fused_enabled:
                 self._fused_dispatch(tab, spans)
@@ -1137,6 +1207,12 @@ class Runner:
                 need[int(StatusCode.DIVIDE_ERROR)] = []
             for lane in np.nonzero(np.isin(status, list(need)))[0]:
                 if int(lane) in undeliverable:
+                    continue
+                if (int(status[lane]) in fault_statuses
+                        and not self._deliver_lane(int(lane))):
+                    # heterogeneous batch: this lane's tenant has no IDT,
+                    # so its faults are terminal, as in a solo campaign
+                    undeliverable.add(int(lane))
                     continue
                 need[int(status[lane])].append(int(lane))
             total = sum(len(v) for v in need.values())
@@ -1201,8 +1277,6 @@ class Runner:
         # max_chunks exhausted: revoke the lanes still making progress as
         # TIMEDOUT (their coverage is excluded from the merge)
         status = self.machine.status.cpu().numpy()
-        fault_statuses = (int(StatusCode.PAGE_FAULT),
-                          int(StatusCode.DIVIDE_ERROR))
         nonterminal = [int(StatusCode.RUNNING), int(StatusCode.NEED_DECODE),
                        int(StatusCode.SMC), int(StatusCode.UNSUPPORTED),
                        int(StatusCode.BREAKPOINT), int(StatusCode.NEEDS_XLA)]
@@ -1210,7 +1284,9 @@ class Runner:
             nonterminal += list(fault_statuses)
         stuck = [int(lane)
                  for lane in np.nonzero(np.isin(status, nonterminal))[0]
-                 if int(lane) not in undeliverable]
+                 if int(lane) not in undeliverable
+                 and not (int(status[lane]) in fault_statuses
+                          and not self._deliver_lane(int(lane)))]
         if stuck:
             view = self.view()
             for lane in stuck:

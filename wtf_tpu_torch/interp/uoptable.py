@@ -348,6 +348,20 @@ class DecodeCache:
         """Real (untagged) rip of an entry."""
         return tag_key(int(self.rip[idx]), int(self.tenant_of[idx]))
 
+    def tenant_entries(self, tenant: int) -> list:
+        """This tenant's entries in insertion order, as (global entry
+        index, real rip, raw bytes, pfn0, pfn1) — the per-tenant slice a
+        tenancy checkpoint persists (wtf_tpu_torch/tenancy/state.py); the
+        global indices are the tenant's coverage-bitmap remap."""
+        out = []
+        for idx in range(self.count):
+            if int(self.tenant_of[idx]) != tenant:
+                continue
+            key = int(self.rip[idx])
+            out.append((idx, tag_key(key, tenant), self.uops[key].raw,
+                        int(self.pfn0[idx]), int(self.pfn1[idx])))
+        return out
+
     def rips_of_bits(self, words: np.ndarray) -> list:
         """Decode a coverage bitmap (u32 words over entry indices) to
         real (untagged) RIPs."""
