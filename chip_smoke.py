@@ -96,9 +96,9 @@ Phases (each prints one line; any failure exits non-zero):
      campaign with --state on the padded dump: results equal phase 8's,
      the native parser must have parsed it; dump bytes, parse,
      PhysMem.from_pages and upload seconds, device peak
- 16. demo_maze, demo_ioctl and demo_fs campaigns at phase 8's size, each
-     seeded with its reference test's input, counts zeroed just before
-     and read just after: the native host mutator, K1 launched, no
+ 16. demo_maze, demo_ioctl and demo_fs campaigns at 4096 lanes x 16384
+     runs, each seeded with its reference test's input, counts zeroed
+     just before and read just after: the native host mutator, K1 launched, no
      oracle fallback, every lane terminal; execs/s, K1 launches per
      batch, occupancy, spans, breakpoint services (demo_fs); K1 against
      its plain version on a crafted batch start of each (payloads at
@@ -126,7 +126,7 @@ Phases (each prints one line; any failure exits non-zero):
  20. the fused step parking at FP code, at full width: a Runner with
      --fused-step on at 4096 lanes x 128 overlay rows on a loop mixing
      integer code, an SSE copy and zeroing, SSE FP and x87 arithmetic,
-     trip counts 1-12 per lane; counts zeroed just before and read just
+     trip counts 1-6 per lane; counts zeroed just before and read just
      after: K1 launched and parked lanes at the FP classes, no SSE or
      x87 fallback, every lane terminal; K1 launches, resume legs,
      instructions, wall, the legs' share, device peak; the same batch
@@ -194,7 +194,7 @@ Phases (each prints one line; any failure exits non-zero):
      master's intake and serve seconds, the coverage bytes on the delta
      wire against whole sets, the per-lane device reads per round
      (coverage rows, crash buckets) and their seconds, the device peak
- 28. a 64-lane mux node against a fresh 256-run master, on the card and
+ 28. a 64-lane mux node against a fresh 128-run master, on the card and
      on the CPU, with the delta wire and with --no-cov-delta: equal count
      lines (without the clock fields), outputs/, crashes/ and coverage.cov
      (addresses and the cursor's table and words, without the node's
@@ -228,10 +228,34 @@ Phases (each prints one line; any failure exits non-zero):
      names per job; a demo_tlv + demo_kernel + demo_pe mix (4 lanes
      each, 2 batches) equal, tenant by tenant, to each solo run on the
      card; a 32-lane x 64-run demo_pe campaign card == CPU
+ 33. the lane mesh: phase 10's devmangle campaign batch at a time
+     (--megachunk 0) on a LaneMesh of 4 shards of cuda:0 (1024 lanes
+     each), counts zeroed just before and read just after: K1 launched
+     per shard (device.shard_fused_dispatches sums to the launches), K2
+     once, device.shard_instructions summing to device.instructions,
+     and the final line, corpus, crashes, cov/edge bytes, statuses, the
+     last devmut batch and the ctr totals equal to phase 10's
+     single-device run; execs/s, K1 launches per shard against one
+     device's, the legs' share, device peak; then K1 on each shard
+     against its plain version on a devmangle batch start, and K1's time
+     at the shard's 1024 lanes with its bound
+ 34. `campaign --mesh-devices 1` at phase 5's settings equal to the same
+     CLI without the flag (final line, outputs/; walls, legs and K1
+     spans of the two), and
+     `--mesh-devices <cards + 1>` refused with "sees only"
+ 35. two wtf_tpu_torch.testing.multihost_worker processes on cuda:0
+     joined over gloo, 2048 lanes each, one fused round each: the same
+     merged-coverage digest in both, equal to one process's 2-shard run;
+     then the mesh batch merge across the two processes on seeded
+     bitmaps, equal to the one-process merge_coverage
+ 36. the 64-lane x 8-shard twin of phase 33 (128 runs) on the card and,
+     in a worker process, on the CPU: equal
 
 Phase 8 fails unless its host mutator is the native engine (the one the
 reference CLI picks).  Every phase always runs, at the sizes above.
-Phases 6, 9, 11, 14, 17, 28 and 32 and the comparisons of phases 20-26
+The card is one: the mesh phases' shards share it, so they exercise the
+per-shard paths and say nothing of a mesh of several cards.
+Phases 6, 9, 11, 14, 17, 28, 32 and 36 and the comparisons of phases 20-26
 run last, after the timed phases: their CPU sides run in worker processes started
 together (spawned, and joined before the script ends) while this process
 runs their card sides.  The line before the kernels' JSON record gives
@@ -327,6 +351,7 @@ QUARANTINE_LANE = 9
 # reference's verify recipe (the loop head `cmp r8, r9`, second arrival)
 VBREAK_AT = ["--break-at", "tlv!parse+0x12", "--hit", "2"]
 TWIN_LANES = 64                 # the 64-lane twins, card == cpu
+TARGET_RUNS = 16384             # phase 16's campaigns
 TWIN_CORPUS = 96                # the twins' corpus: the largest files
 # wtf_tpu/testing/triage_smoke.py's crasher (junk records around a type-3
 # stack smash) and its known-minimal reproducer: the twins' minimize
@@ -885,7 +910,7 @@ def fp_state(n_lanes: int, seed: int, dev):
 def fp_loop(n_lanes: int, dev, burst_any_tier: bool):
     """A Runner (fused step on, n_lanes x SLOTS overlay rows) on phase 20's
     guest, every instruction decoded, each lane with its own trip count
-    (1-12), seed value and buffer offsets (drawn on the CPU, so the same
+    (1-6), seed value and buffer offsets (drawn on the CPU, so the same
     on any device)."""
     import random
     import struct
@@ -913,7 +938,7 @@ def fp_loop(n_lanes: int, dev, burst_any_tier: bool):
     def rint(lo, hi):
         return torch.randint(lo, hi, (n_lanes,), generator=g)
 
-    regs = {1: 1 + rint(0, 12), 8: rint(-2**40, 2**40),
+    regs = {1: 1 + rint(0, 6), 8: rint(-2**40, 2**40),
             3: GRID_DATA_GVA + 8 * rint(0, 32),
             6: torch.full((n_lanes,), GRID_DATA_GVA + 0x2000),
             7: GRID_DATA_GVA + 0x1000 + 8 * rint(0, 0x100)}
@@ -1621,7 +1646,7 @@ def phase_targets_card_vs_cpu(cpu) -> None:
               f"{card[5]:.1f} s, cpu {want[5]:.1f} s in a worker process)")
 
 
-def phase_window_campaign(k1: dict, k2: dict, record: dict) -> None:
+def phase_window_campaign(k1: dict, k2: dict, record: dict) -> tuple:
     import torch
 
     from wtf_tpu_torch import cli
@@ -1710,6 +1735,7 @@ def phase_window_campaign(k1: dict, k2: dict, record: dict) -> None:
     # own effect at full width, and the same results
     walls = {"8": [wall], "0": []}
     for mc in ("0",):
+        k1_before = pstep.LAUNCHES["fused_step"]
         t0 = time.perf_counter()
         loop = cli.campaign(cli.build_parser().parse_args(
             CAMPAIGN + ["--mutator", "devmangle", "--megachunk", mc]))
@@ -1723,6 +1749,11 @@ def phase_window_campaign(k1: dict, k2: dict, record: dict) -> None:
                 "mutate", "execute", "harvest", "restore", "execute/insert",
                 "execute/fused-step", "execute/device-step",
                 "execute/service-decode", "execute/cov-readback")}
+            # the single-device twin of phase 33's mesh campaign
+            batch_ref = {"fp": batch_fingerprint(loop),
+                         "wall_s": walls[mc][-1],
+                         "k1_launches": (pstep.LAUNCHES["fused_step"]
+                                         - k1_before)}
         loop.backend.restore()
         del loop
         torch.cuda.empty_cache()
@@ -1735,7 +1766,7 @@ def phase_window_campaign(k1: dict, k2: dict, record: dict) -> None:
     record["window_campaign"]["megachunk0_spans"] = spans0
     profiled_rerun("phase 10", WCAMPAIGN, record["window_campaign"],
                    launches["fused_step"], wall)
-    return window_out
+    return window_out, batch_ref
 
 
 def phase_window_card_vs_cpu(cpu) -> tuple:
@@ -2232,7 +2263,7 @@ def held_batch(name: str, loop, n: int) -> list:
 
 def target_argv(name: str) -> list:
     return ["campaign", "--name", name, "--fused-step", "on", "--lanes",
-            str(LANES), "--runs", str(RUNS), "--limit", "100000",
+            str(LANES), "--runs", str(TARGET_RUNS), "--limit", "100000",
             "--max_len", "96", "--seed", "5"]
 
 
@@ -3337,7 +3368,7 @@ NODE_RUNS = 16384               # phase 27's master budget
 CHAOS_RUNS = 8192               # phase 29's
 CHAOS_MAX_LEN = 32              # phase 29's testcases: a work frame of
                                 # 4096 fits one socket send buffer
-TWIN_RUNS = 256                 # phase 28's, at TWIN_LANES
+TWIN_RUNS = 128                 # phase 28's, at TWIN_LANES
 MASTER = ["master", "--name", "demo_tlv", "--seed", "5"]
 NODE = ["fuzz", "--name", "demo_tlv", "--mux", "--fused-step", "on",
         "--limit", "20000", "--seed", "5"]
@@ -4265,15 +4296,333 @@ def phase_tenancy_card_vs_cpu(cpu) -> None:
           f"(card {card_s:.1f} s, cpu {cpu_s:.1f} s in a worker process)")
 
 
+# ---------------------------------------------------------------------------
+# phases 33-36: the lane mesh
+# ---------------------------------------------------------------------------
+
+MESH_SHARDS = 4                 # phase 33: shards of one card
+MESH_TWIN_SHARDS = 8            # phase 36: 64 lanes x 8 shards
+MESH_TWIN_RUNS = 128
+DEVMANGLE = CAMPAIGN + ["--mutator", "devmangle", "--megachunk", "0"]
+CTR_COUNTERS = ("device.instructions", "device.mem_faults",
+                "device.decode_misses", "device.fused_steps",
+                "device.fused_park_subset", "device.fused_park_mem")
+
+
+def batch_fingerprint(loop) -> dict:
+    """What a mesh run shares with its single-device twin: the final
+    line, corpus digests, crash names, cov/edge bytes and statuses, the
+    last batch's device-generated bytes, and the `ctr` totals."""
+    from wtf_tpu_torch.utils.hashing import hex_digest
+
+    words, lens = loop.mutator.current_batch()
+    return {"line": stats_line(loop), "outcome": outcome(loop),
+            "devmut": hex_digest(words.cpu().numpy().tobytes()
+                                 + lens.cpu().numpy().tobytes()),
+            "ctr": {n: loop.registry.counter(n).value
+                    for n in CTR_COUNTERS}}
+
+
+def mesh_campaign(argv: list, device: str, shards: int) -> tuple:
+    """`argv`'s campaign through cli.campaign on a LaneMesh of `shards`
+    shards, all on `device` (the library's explicit device list: no flag
+    puts two shards on one card).  Returns (loop, wall)."""
+    import torch
+
+    from wtf_tpu_torch import cli
+    from wtf_tpu_torch.meshrun import LaneMesh
+
+    a = cli.build_parser().parse_args(argv + ["--device", device])
+    dev = torch.device("cuda", 0) if device == "cuda" else \
+        torch.device(device)
+    t0 = time.perf_counter()
+    loop = cli.campaign(a, mesh=LaneMesh([dev] * shards))
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return loop, time.perf_counter() - t0
+
+
+def mesh_twin(device: str) -> dict:
+    """Phase 36: the devmangle campaign at 64 lanes x 8 shards of
+    `device`, MESH_TWIN_RUNS testcases."""
+    argv = ["campaign", "--name", "demo_tlv", "--fused-step", "on",
+            "--mutator", "devmangle", "--lanes", str(TWIN_LANES), "--runs",
+            str(MESH_TWIN_RUNS), "--limit", "20000", "--max_len", "96",
+            "--seed", "5"]
+    loop, wall = mesh_campaign(argv, device, MESH_TWIN_SHARDS)
+    fp = batch_fingerprint(loop)
+    fp["wall_s"] = wall
+    return fp
+
+
+def phase_mesh_campaign(k1: dict, k2: dict, record: dict,
+                        batch_ref: dict) -> None:
+    """Phase 33: phase 10's devmangle campaign batch at a time on a
+    4-shard mesh of cuda:0, counts zeroed just before and read just
+    after; equal to phase 10's single-device run; then K1 on each shard
+    against its plain version on a batch start, and K1's time at the
+    shard's 1024 lanes with its bound."""
+    import torch
+
+    from wtf_tpu_torch.interp import pstep
+
+    torch.cuda.reset_peak_memory_stats()
+    for name in pstep.LAUNCHES:
+        pstep.LAUNCHES[name] = 0
+    loop, wall = mesh_campaign(DEVMANGLE, "cuda", MESH_SHARDS)
+    launches = dict(pstep.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    backend, reg = loop.backend, loop.registry
+    got, want = batch_fingerprint(loop), batch_ref["fp"]
+    bad = [k for k in want if got[k] != want[k]]
+    check(not bad, f"phase 33: the {MESH_SHARDS}-shard mesh campaign "
+                   f"differs from the single-device run in {bad}")
+    per_shard = reg.counter("device.shard_fused_dispatches").dump()
+    check(launches["fused_step"] > 0 and len(per_shard) == MESH_SHARDS
+          and sum(per_shard.values()) == launches["fused_step"],
+          f"phase 33: K1 launches {launches} against per-shard "
+          f"dispatches {per_shard}")
+    check(launches["probe"] == 1, f"phase 33: K2 launches {launches}")
+    by_instr = reg.counter("device.shard_instructions").dump()
+    check(sum(by_instr.values()) == reg.counter("device.instructions").value
+          and len(by_instr) == MESH_SHARDS,
+          f"phase 33: device.shard_instructions {by_instr} do not sum to "
+          f"device.instructions")
+    check(reg.gauge("mesh.devices").value == MESH_SHARDS
+          and reg.gauge("mesh.lanes_per_shard").value
+          == LANES // MESH_SHARDS, "phase 33: mesh gauges")
+    spans = reg.spans
+    legs, k1_s = (spans.seconds("execute/device-step"),
+                  spans.seconds("execute/fused-step"))
+    k1["launches"] += launches["fused_step"]
+    k2["launches"] += launches["probe"]
+    k1["launches_by_path"]["demo_tlv mesh x4"] = launches["fused_step"]
+    k2["launches_by_path"]["demo_tlv mesh x4"] = launches["probe"]
+
+    # K1 per shard against its plain version on the next devmangle batch
+    # of the stream, from its start (comparisons: the counts are put back)
+    runner = backend.runner
+    counts = dict(pstep.LAUNCHES)
+    loop.target.restore()
+    backend.restore()
+    words, lens = loop.mutator.take_batch()
+    spec = loop.mutator.spec
+    runner.device_insert(words, lens, loop.mutator.pfns, spec.gva,
+                         spec.len_gpr, spec.ptr_gpr)
+    tab = runner.device_tab()
+    err = 0
+    for s, shard in enumerate(runner.shards):
+        m0 = shard.clone()
+        mk, mp = m0.clone(), m0.clone()
+        with runner.mesh.scope(s):
+            pstep.fused_step(tab[shard.device], runner.images[s], mk,
+                             runner.limit, runner.fused_k)
+        pstep.fused_step_plain(tab[shard.device], runner.images[s], mp,
+                               runner.limit, runner.fused_k)
+        bad, e = plane_diff(mk, mp)
+        check(not bad, f"phase 33: K1 differs from its plain version on "
+                       f"shard {s}: {bad}")
+        err = max(err, e)
+    k1["max_abs_err"] = max(k1["max_abs_err"] or 0, err)
+    first = runner.shards[0]
+    m0, work = first.clone(), {}
+
+    def fresh():
+        work["m"] = m0.clone()
+
+    ms = cuda_ms(lambda: pstep.fused_step(
+        tab[first.device], runner.images[0], work["m"], runner.limit,
+        runner.fused_k), 10, setup=fresh)
+    mk = m0.clone()
+    pstep.fused_step(tab[first.device], runner.images[0], mk, runner.limit,
+                     runner.fused_k)
+    bound_ms, by, detail = k1_bound(m0, mk, runner, tab[first.device])
+    torch.cuda.synchronize()
+    pstep.LAUNCHES.update(counts)
+    k1["mesh_shard_ms"], k1["mesh_shard_bound_ms"] = ms, bound_ms
+    ref_wall = batch_ref["wall_s"]
+    print(f"phase 33: {MESH_SHARDS}-shard mesh of cuda:0, devmangle batch "
+          f"at a time: {loop.stats.testcases} testcases in {wall:.2f} s = "
+          f"{loop.stats.testcases / wall:.1f} execs/s (one device, phase "
+          f"10: {RUNS / ref_wall:.1f}); equal to phase 10's single-device "
+          f"run (line, corpus, crashes, cov/edge bytes, statuses, the last "
+          f"devmut batch, ctr totals); K1 launches {launches['fused_step']}"
+          f" per shard {per_shard} (one device: "
+          f"{batch_ref['k1_launches']}), K2 {launches['probe']}; "
+          f"shard_instructions {by_instr} sum to device.instructions "
+          f"{reg.counter('device.instructions').value}; legs "
+          f"{legs:.2f} s = {legs / wall:.3f} of the wall, K1 {k1_s:.2f} s; "
+          f"device peak {peak}")
+    print(f"phase 33: K1 on each shard == its plain version on a devmangle "
+          f"batch start; on shard 0 ({first.n_lanes} lanes) {ms:.3f} ms per "
+          f"dispatch, bound {bound_ms:.5f} ms ({detail})")
+    record["mesh_campaign"] = {
+        "shards": MESH_SHARDS, "testcases": loop.stats.testcases,
+        "wall_s": wall, "execs_per_s": loop.stats.testcases / wall,
+        "single_device_wall_s": ref_wall,
+        "k1_launches": launches["fused_step"], "k1_per_shard": per_shard,
+        "single_device_k1_launches": batch_ref["k1_launches"],
+        "k2_launches": launches["probe"], "shard_instructions": by_instr,
+        "legs_s": legs, "k1_s": k1_s, "peak_bytes": peak,
+        "k1_shard_ms": ms, "k1_shard_bound_ms": bound_ms,
+        "k1_shard_bound_by": by, "final_line": got["line"]}
+    backend.restore()
+    del loop, backend, runner, tab, m0, mk, first
+    torch.cuda.empty_cache()
+
+
+def phase_mesh_cli(record: dict) -> None:
+    """Phase 34: `campaign --mesh-devices 1` at phase 5's settings equals
+    the same CLI without the flag (final line and outputs/), and the cost
+    of the mesh path on one card beside it; `--mesh-devices N` with more shards than cards exits with the "sees
+    only" message before any work."""
+    import torch
+
+    from wtf_tpu_torch import cli
+    from wtf_tpu_torch.meshrun.backend import MeshBackend
+
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, mesh in enumerate((False, True)):
+            # outputs/ only: phase 5's ~10,000 crash files would take a
+            # minute to write per run
+            out = Path(tmp) / str(i) / "outputs"
+            t0 = time.perf_counter()
+            loop = cli.campaign(cli.build_parser().parse_args(
+                CAMPAIGN + ["--outputs", str(out)]
+                + (["--mesh-devices", "1"] if mesh else [])))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            check(isinstance(loop.backend, MeshBackend) == mesh,
+                  f"phase 34: --mesh-devices 1 built "
+                  f"{type(loop.backend).__name__}")
+            spans = loop.registry.spans
+            runs.append((stats_line(loop), tree_digests(out.parent), wall,
+                         spans.seconds("execute/device-step"),
+                         spans.seconds("execute/fused-step")))
+            del loop
+            torch.cuda.empty_cache()
+    check(all(r[:2] == runs[0][:2] for r in runs),
+          "phase 34: campaign --mesh-devices 1 differs from the same CLI "
+          "without the flag")
+    refused = ""
+    wide = torch.cuda.device_count() + 1
+    try:
+        cli.main(CAMPAIGN + ["--mesh-devices", str(wide)])
+    except SystemExit as e:
+        refused = str(e)
+    check("sees only" in refused,
+          f"phase 34: --mesh-devices {wide} exited with {refused!r}")
+
+    def cols(i):
+        return [round(r[i], 3) for r in runs]
+
+    print(f"phase 34: campaign --mesh-devices 1 == without the flag: "
+          f"{runs[0][0]}, {len(runs[0][1][0])} outputs; (plain, mesh) "
+          f"walls {cols(2)} s, legs {cols(3)} s, K1 spans {cols(4)} s; "
+          f"--mesh-devices {wide}: \"{refused}\"")
+    record["mesh_cli"] = {"line": runs[0][0], "turns": "plain mesh",
+                          "wall_s": cols(2), "legs_s": cols(3),
+                          "k1_s": cols(4)}
+
+
+def phase_mesh_processes(record: dict) -> None:
+    """Phase 35: two worker processes on cuda:0 joined over gloo, 2048
+    lanes each, one fused round each (K1 on its shard, the resume leg):
+    both report the same merged-coverage digest, equal to this process's
+    2-shard run of the same 4096 lanes."""
+    import socket
+
+    import torch
+
+    from wtf_tpu_torch.interp import pstep
+    from wtf_tpu_torch.meshrun import LaneMesh
+    from wtf_tpu_torch.testing.multihost_worker import (
+        merge_case, run_mesh_chunk, run_mesh_merge,
+    )
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    half = LANES // 2
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "wtf_tpu_torch.testing.multihost_worker",
+         "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2",
+         "--process-id", str(pid), "--device", "cuda:0", "--shards", "1",
+         "--lanes", str(half), "--overlay-slots", str(SLOTS), "--fused",
+         "--merge-seed", "7"],
+        cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for pid in range(2)]
+    counts = dict(pstep.LAUNCHES)
+    one = run_mesh_chunk(LaneMesh([torch.device("cuda", 0)] * 2), LANES,
+                         overlay_slots=SLOTS, fused=True)
+    pstep.LAUNCHES.update(counts)
+    merged = run_mesh_merge(LaneMesh([torch.device("cpu")]),
+                            merge_case(7, LANES))
+    outs = []
+    for p in procs:
+        try:
+            outs.append(p.communicate(timeout=600) + (p.returncode,))
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+                q.communicate()
+            fail("phase 35: a mesh worker process hung")
+    wall = time.perf_counter() - t0
+    for out, err, rc in outs:
+        check(rc == 0, f"phase 35: a mesh worker failed: {err[-2000:]}")
+    reports = [json.loads(next(ln for ln in out.splitlines()
+                               if ln.startswith("{")))
+               for out, _, _ in outs]
+    keys = ("devices", "lanes", "instructions", "min_lane_icount",
+            "cov_words_set", "cov_digest")
+    check(all(r[k] == one[k] for r in reports for k in keys),
+          f"phase 35: the two processes {reports} differ from the "
+          f"one-process 2-shard run {one}")
+    check(all(r["merge"] == merged for r in reports)
+          and 0 < sum(merged["new_lane"]) < LANES,
+          "phase 35: the mesh merge across the two processes differs from "
+          "the one-process merge")
+    check(all(r["k1_launches"] == 1 for r in reports)
+          and one["k1_launches"] == 2 and one["cov_words_set"] > 0,
+          f"phase 35: K1 launches {[r['k1_launches'] for r in reports]}, "
+          f"{one['k1_launches']}")
+    print(f"phase 35: 2 processes x {half} lanes on cuda:0 over gloo, one "
+          f"fused round each: the same merged-coverage digest "
+          f"{one['cov_digest']} ({one['cov_words_set']} words set, "
+          f"{one['instructions']} instructions) as one process's 2 shards, "
+          f"and the mesh merge across them equal to one process's "
+          f"({sum(merged['new_lane'])} of {LANES} lanes credited); "
+          f"{wall:.1f} s")
+    record["mesh_processes"] = {"reports": reports, "one_process": one,
+                                "wall_s": wall}
+
+
+def phase_mesh_card_vs_cpu(cpu) -> None:
+    """Phase 36: the mesh twin, 64 lanes x 8 shards: card == cpu."""
+    got = mesh_twin("cuda")
+    want = cpu["mesh"].result()
+    bad = [k for k in ("line", "outcome", "devmut", "ctr")
+           if got[k] != want[k]]
+    check(not bad, f"phase 36: the {MESH_TWIN_SHARDS}-shard mesh twin "
+                   f"differs between card and cpu in {bad}")
+    print(f"phase 36: {TWIN_LANES}-lane x {MESH_TWIN_SHARDS}-shard "
+          f"devmangle campaign ({MESH_TWIN_RUNS} runs) card == cpu: "
+          f"{got['line']} (card {got['wall_s']:.1f} s, cpu "
+          f"{want['wall_s']:.1f} s in a worker process)")
+
+
 def start_cpu_references(pool, keep: Path, vbreak_input: bytes) -> dict:
-    """The CPU sides of phases 6, 9, 11, 14, 17, 20, 21-23, 24-26, 28 and
-    32, started together in worker processes once the card's timed phases
-    are done."""
+    """The CPU sides of phases 6, 9, 11, 14, 17, 20, 21-23, 24-26, 28, 32
+    and 36, started together in worker processes once the card's timed
+    phases are done."""
     import os
 
     # the node twins first: each also waits on a master subprocess, and
     # they are the longest of the jobs
     jobs = {"sched": (sched_twin, "cpu"),
+            "mesh": (mesh_twin, "cpu"),
             "node delta=True": (node_twin, "cpu", True),
             "node delta=False": (node_twin, "cpu", False),
             "demo_tlv": (small_campaign, "demo_tlv", "cpu"),
@@ -4352,7 +4701,7 @@ def main(argv=None) -> int:
     stamp("7")
     kernel_out = phase_kernel_campaign(k1, k2, record)
     stamp("8")
-    window_out = phase_window_campaign(k1, k2, record)
+    window_out, batch_ref = phase_window_campaign(k1, k2, record)
     stamp("10")
     phase_decode(dev, record)
     phase_dd_window_campaign(k1, k2, record, window_out)
@@ -4383,9 +4732,13 @@ def main(argv=None) -> int:
     stamp("30")
     phase_sched(k1, k2, record, Path(work.name))
     stamp("31")
-    # the CPU references of phases 6, 9, 11, 14, 17, 20, 21-23, 24-26, 28
-    # and 32 run in worker processes, after every timed phase, while this
-    # process runs their card sides
+    phase_mesh_campaign(k1, k2, record, batch_ref)
+    phase_mesh_cli(record)
+    phase_mesh_processes(record)
+    stamp("33-35")
+    # the CPU references of phases 6, 9, 11, 14, 17, 20, 21-23, 24-26, 28,
+    # 32 and 36 run in worker processes, after every timed phase, while
+    # this process runs their card sides
     with ProcessPoolExecutor(
             max_workers=14, mp_context=multiprocessing.get_context(
                 "spawn")) as pool:
@@ -4400,6 +4753,7 @@ def main(argv=None) -> int:
         phase_triage_card_vs_cpu(cpu, keep, vbreak_input)
         phase_node_card_vs_cpu(cpu)
         phase_tenancy_card_vs_cpu(cpu)
+        phase_mesh_card_vs_cpu(cpu)
     work.cleanup()
     stamp("twins")
     record["elapsed_s"] = elapsed

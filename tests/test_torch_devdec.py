@@ -55,6 +55,9 @@ from wtf_tpu_torch.interp.machine import machine_init
 from wtf_tpu_torch.interp.uoptable import DecodeCache
 from wtf_tpu_torch.mem.physmem import PhysMem, lane_image
 from wtf_tpu_torch.snapshot.synthetic import SyntheticSnapshotBuilder
+from tests.torchport import one_torch_thread  # noqa: F401  (module fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 REPO = Path(__file__).resolve().parent.parent
 MASK64 = (1 << 64) - 1

@@ -31,6 +31,9 @@ import pytest
 
 from wtf_tpu.analysis.trace import build_tlv_campaign
 from wtf_tpu.utils.hashing import hex_digest
+from tests.torchport import one_torch_thread  # noqa: F401  (module fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 REPO = Path(__file__).resolve().parent.parent
 BUILD = dict(n_lanes=8, limit=20_000, chunk_steps=128, overlay_slots=16)
@@ -166,7 +169,9 @@ def test_cli_window_campaign_equals_jax_cli(tmp_path):
         target = tmp_path / pkg
         procs[pkg] = (target, subprocess.Popen(
             [sys.executable, "-m", pkg] + args + extra
-            + ["--target", str(target)], cwd=REPO, env=env,
+            + ["--target", str(target)], cwd=REPO,
+            env=dict(env, OMP_NUM_THREADS="1") if pkg == "wtf_tpu_torch"
+            else env,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     out = {}
     for pkg, (target, proc) in procs.items():

@@ -35,6 +35,9 @@ from wtf_tpu_torch import convert
 from wtf_tpu_torch.core.results import StatusCode
 from wtf_tpu_torch.interp import pstep as TP
 from wtf_tpu_torch.interp.machine import CTR_FUSED, CTR_INSTR
+from tests.torchport import one_torch_thread  # noqa: F401  (module fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 N_LANES = 4
 CAP = 1024

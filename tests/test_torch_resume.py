@@ -33,6 +33,7 @@ import pytest
 from tests.torchport import (
     build_port_tlv_campaign, campaign_fingerprint,
     checkpoint_at_every_boundary, record_devmut_stream,
+    one_torch_thread,  # noqa: F401  (module fixture)
 )
 from wtf_tpu.analysis.trace import build_tlv_campaign
 from wtf_tpu_torch.resume import (
@@ -44,6 +45,8 @@ from wtf_tpu_torch.testing.faultinject import (
 )
 from wtf_tpu_torch.utils.atomicio import atomic_write_bytes
 from wtf_tpu_torch.utils.hashing import hex_digest
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 BUILD = dict(n_lanes=8, limit=20_000, chunk_steps=128, overlay_slots=16)
 BATCHES = 4

@@ -27,6 +27,9 @@ from wtf_tpu.interp import step as JS
 from wtf_tpu_torch import convert
 from wtf_tpu_torch.core.results import StatusCode
 from wtf_tpu_torch.interp import step as TS
+from tests.torchport import one_torch_thread  # noqa: F401  (module fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 N_LANES = 4
 CAP = 1024

@@ -35,6 +35,9 @@ from wtf_tpu_torch.core.cpustate import GPR_NAMES
 from wtf_tpu_torch.core.results import StatusCode
 from wtf_tpu_torch.cpu import uops as U
 from wtf_tpu_torch.interp import step as TS
+from tests.torchport import one_torch_thread  # noqa: F401  (module fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 N_LANES = 16
 CAP = 1024

@@ -26,6 +26,9 @@ from tests.test_x87 import _EPILOGUE, _PRELUDE, F64
 from wtf_tpu_torch.core.results import StatusCode
 from wtf_tpu_torch.cpu.decoder import decode
 from wtf_tpu_torch.interp import step as TS
+from tests.torchport import one_torch_thread  # noqa: F401  (module fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 CRASH = int(StatusCode.CRASH)
 _OUT = "\nfstp qword ptr [rsp+16]\nmov rax, [rsp+16]"

@@ -37,6 +37,7 @@ import torch
 
 from tests.torchport import (
     build_port_tlv_campaign, campaign_fingerprint, initial_machine, to_jax,
+    one_torch_thread,  # noqa: F401  (module fixture)
 )
 from wtf_tpu.analysis.trace import build_tlv_campaign
 from wtf_tpu_torch.core.results import StatusCode
@@ -50,6 +51,8 @@ from wtf_tpu_torch.supervise import supervisor as sup_mod
 from wtf_tpu_torch.testing.faultinject import (
     FaultPlan, SeamFaultPlan, chaos_device, fuzz_until_killed,
 )
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 # tests/test_supervise.py's campaign shape
 LANES, BATCHES = 8, 4

@@ -26,6 +26,9 @@ import struct
 
 import numpy as np
 import pytest
+from tests.torchport import one_torch_thread  # noqa: F401  (module fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 N_LANES = 16
 LIMIT = 100_000

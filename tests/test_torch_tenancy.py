@@ -29,8 +29,8 @@ The three-tenant mix runs one batch at a limit of 1,200 in both packages
 steps, hours of the port's CPU step), with carol seeded by
 test_pe_target's 3-point input (Ok after 1,190 instructions) so her
 lanes finish inside it.  The
-mesh parity case waits for the port's multi-device item; the two lint
-cases wait for its port-side checks.
+mesh parity case is tests/test_torch_mesh_paths.py's; the two lint
+cases wait for the port-side checks.
 """
 
 import json
@@ -485,9 +485,20 @@ def test_restore_tenant_rejects_mismatched_placement(tmp_path):
 
 
 def test_mesh_tenancy_raises_until_the_multi_device_item():
-    with pytest.raises(ValueError, match="A13"):
-        create_tenancy_backend([TenantSpec("a", None, None, 4)], 8,
-                               mesh_devices=2)
+    """The mesh-sharded batch is ported (A13(a): TenancyMeshBackend; its
+    parity is tests/test_torch_mesh_paths.py's); what still raises is
+    the rest of the multi-device item, device decode on a mesh
+    (A13(b))."""
+    from wtf_tpu_torch.tenancy import TenancyMeshBackend
+
+    snap = _targets().get("demo_tlv").snapshot()
+    specs = [TenantSpec("a", None, snap, 4)]
+    assert isinstance(create_tenancy_backend(specs, 8, mesh_devices=2,
+                                             device="cpu"),
+                      TenancyMeshBackend)
+    with pytest.raises(ValueError, match=r"A13\(b\)"):
+        create_tenancy_backend(specs, 8, mesh_devices=2, device="cpu",
+                               device_decode=True).initialize()
 
 
 # ---------------------------------------------------------------------------

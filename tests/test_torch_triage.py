@@ -41,6 +41,9 @@ import torch
 
 from wtf_tpu.testing.triage_smoke import CRASHER, MINIMAL, SEEDS
 from wtf_tpu_torch.utils.hashing import hex_digest
+from tests.torchport import one_torch_thread  # noqa: F401  (module fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 REPO = Path(__file__).resolve().parent.parent
 LANES = ["--lanes", "16", "--limit", "20000"]

@@ -281,18 +281,20 @@ def build_port_tlv_campaign(n_lanes: int = 64, mutator: str = "mangle",
     on the CPU: a demo_tlv FuzzLoop with the backend initialized, target
     init done, one TLV seed in the corpus, and the mutation engine picked
     by name ("mangle" = best host engine; "devmangle" = the device
-    engine)."""
+    engine).  `mesh_devices=N` (N shards of the CPU) or `mesh=LaneMesh`
+    builds a MeshBackend."""
     import random
 
-    from wtf_tpu_torch.backend.gpu import GpuBackend
+    from wtf_tpu_torch.backend import create_backend
     from wtf_tpu_torch.fuzz.corpus import Corpus
     from wtf_tpu_torch.fuzz.loop import FuzzLoop
     from wtf_tpu_torch.fuzz.mutator import create_mutator
     from wtf_tpu_torch.fuzz.native_mutator import best_mangle_mutator
     from wtf_tpu_torch.harness import demo_tlv
 
-    backend = GpuBackend(demo_tlv.build_snapshot(), n_lanes=n_lanes,
-                         limit=limit, device="cpu", **backend_kwargs)
+    backend = create_backend("gpu", demo_tlv.build_snapshot(),
+                             n_lanes=n_lanes, limit=limit, device="cpu",
+                             **backend_kwargs)
     backend.initialize()
     demo_tlv.TARGET.init(backend)
     rng = random.Random(seed)

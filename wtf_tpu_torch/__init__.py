@@ -15,7 +15,8 @@ Layering:
   interp/   - ints (64-bit guest arithmetic), machine, decode cache, the
               precise step, the fused step + its CUDA kernel, the runner
   csrc/     - hand-written CUDA kernels for sm_90a and their build helper
-  meshrun/  - the batch coverage merge
+  meshrun/  - the batch coverage merge and the lane mesh (shards of the
+              batch over devices, one logical backend)
   backend/  - Backend contract, the oracle backend, GpuBackend
   fuzz/     - corpus, mutators, the campaign loop
   device.py - device choice: CUDA unless the CPU is asked for

@@ -30,6 +30,7 @@ campaign checkpoint (wtf_tpu_torch/resume).
 
 from __future__ import annotations
 
+import weakref
 from contextlib import contextmanager
 from typing import Dict, List, Optional, Sequence, Set
 
@@ -76,6 +77,9 @@ class GpuBackend(Backend):
                 runner_kwargs.pop("max_batch_retries", 4)),
             quarantine_threshold=int(
                 runner_kwargs.pop("quarantine_threshold", 3)))
+        # the supervisor's reshard rung reads the backend's mesh (a weak
+        # reference: no cycle keeps a dropped backend's batch alive)
+        self.supervisor.backend_ref = weakref.ref(self)
         self._runner_kwargs = runner_kwargs
         self.runner: Optional[Runner] = None
         self.breakpoints: Dict[int, BreakpointHandler] = {}
@@ -420,7 +424,7 @@ class GpuBackend(Backend):
                     & (np.arange(self.n_lanes) < n_active))
             if qmask is not None:
                 keep &= ~qmask  # quarantined lanes never credit coverage
-            self._merge(m, keep)
+            self._merge(keep)
             self._count_statuses(statuses[:n_active])
             self.stats["batches"] += 1
             self.stats["testcases"] += n_active
@@ -429,13 +433,22 @@ class GpuBackend(Backend):
             runner.fold_device_counters()
             sp.fence(self._agg_cov)
 
-    def _merge(self, m, keep: np.ndarray) -> None:
+    def _merge(self, keep: np.ndarray) -> None:
+        (self._agg_cov, self._agg_edge, self._new_lane,
+         self._last_new_words) = self._merge_lanes(self._agg_cov,
+                                                   self._agg_edge, keep)
+
+    def _merge_lanes(self, agg_cov, agg_edge, keep: np.ndarray):
+        """One prefix-credit merge of the `keep` lanes' bitmaps into the
+        given aggregates -> (agg_cov', agg_edge', new_lane bool[L] and
+        new cov words uint32 on the host).  The seam a mesh backend
+        (meshrun/backend.py) and the per-tenant merges go through."""
+        m = self.runner.machine
         include = torch.from_numpy(keep).to(m.device)
-        (self._agg_cov, self._agg_edge, new_lane,
-         new_words) = merge_coverage(self._agg_cov, self._agg_edge, m.cov,
-                                     m.edge, include)
-        self._new_lane = new_lane.cpu().numpy()
-        self._last_new_words = new_words.cpu().numpy().view(np.uint32)
+        agg_cov, agg_edge, new_lane, new_words = merge_coverage(
+            agg_cov, agg_edge, m.cov, m.edge, include)
+        return (agg_cov, agg_edge, new_lane.cpu().numpy(),
+                new_words.cpu().numpy().view(np.uint32))
 
     # -- checkpoint/resume (wtf_tpu_torch/resume) --------------------------
     def coverage_state(self):
@@ -554,7 +567,7 @@ class GpuBackend(Backend):
         keep = ((statuses != int(StatusCode.TIMEDOUT))
                 & (statuses != int(StatusCode.OVERLAY_FULL))
                 & (np.arange(self.n_lanes) == 0))
-        self._merge(m, keep)
+        self._merge(keep)
         self.stats["batches"] += 1
         self.stats["testcases"] += 1
         self.stats["instructions"] += int(m.icount[0].item())

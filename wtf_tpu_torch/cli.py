@@ -27,8 +27,9 @@ subset it supports plus `--device`:
             batch; `--backend emu` one testcase at a time on the oracle
   master    testcase server: corpus, mutation, coverage aggregation,
             crash intake (no device work; `--runs 0` = minset)
-  fleet     `soak` (simulated clients over the real wire) and `fsck` (verify
-            and repair a content-addressed store)
+  fleet     `reshard` (resume a checkpointed campaign on another
+            --mesh-devices count), `soak` (simulated clients over the real
+            wire) and `fsck` (verify and repair a content-addressed store)
   status    render the status.json a master (or campaign) keeps under
             --telemetry-dir
   snapshot  convert a snapshot between mem.npz and a Windows crash dump
@@ -51,6 +52,13 @@ services decode-cache misses on the device (interp/devdec.py).  `--state
 DIR` loads the snapshot from DIR (mem.npz or mem.dmp, regs.json,
 symbol-store.json) instead of the target's factory;
 `--inputs/--outputs/--crashes` override the dirs under `--target`.
+`--mesh-devices N` on `campaign`, `fuzz`, `sched` and `triage` shards the
+lane batch over a lane mesh (wtf_tpu_torch/meshrun): N cards on cuda, N
+shards of the CPU with `--device cpu`; `campaign --coordinator
+--num-processes --process-id` joins torch.distributed (gloo) and runs one
+mesh over every process's shards (`--mesh-devices` of them each): the
+`--lanes` batch is global, every process runs the same campaign on it
+and writes the same files.
 `--supervise` / `--dispatch-timeout` put every device dispatch under the
 supervisor (wtf_tpu_torch/supervise), and `campaign --checkpoint-every` /
 `--resume` write and continue crash-safe checkpoints
@@ -154,6 +162,18 @@ def _add_engine_args(p: argparse.ArgumentParser) -> None:
                         "0 = no watchdog.  Implies --supervise")
 
 
+def _add_mesh_arg(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--mesh-devices", type=int, default=None, metavar="N",
+                   help="shard the lane batch over a lane mesh "
+                        "(wtf_tpu_torch/meshrun): on cuda the first N "
+                        "cards, one shard each (0 = every card; raises "
+                        "when fewer are visible); with --device cpu N "
+                        "shards of the CPU.  --lanes is the TOTAL lane "
+                        "count and must divide by N; the coverage merge "
+                        "runs across the shards, so the loop sees one "
+                        "logical backend")
+
+
 def _supervise_kwargs(args) -> dict:
     """The backend's supervisor settings: --dispatch-timeout implies
     --supervise (wtf_tpu/cli.py `_backend_tuning_kwargs`)."""
@@ -171,6 +191,9 @@ def _tuning_kwargs(args) -> dict:
                   **_supervise_kwargs(args))
     if args.burst_any_tier != "auto":
         kwargs["burst_any_tier"] = args.burst_any_tier == "on"
+    mesh = getattr(args, "mesh_devices", None)
+    if mesh is not None:
+        kwargs["mesh_devices"] = mesh
     return kwargs
 
 
@@ -254,6 +277,12 @@ def build_parser() -> argparse.ArgumentParser:
                       help="content-addressed corpus/crash store root "
                            "(wtf_tpu_torch/fleet/store); outputs/ and "
                            "crashes/ become flat views of it")
+    camp.add_argument("--coordinator", default=None,
+                      help="torch.distributed (gloo) coordinator address "
+                           "for a multi-process launch (host:port)")
+    camp.add_argument("--num-processes", type=int, default=None)
+    camp.add_argument("--process-id", type=int, default=None)
+    _add_mesh_arg(camp)
 
     sched = sub.add_parser(
         "sched", help="multi-tenant campaign scheduler (wtf_tpu_torch/"
@@ -292,6 +321,7 @@ def build_parser() -> argparse.ArgumentParser:
                             "gets its own tenant-<name> namespace "
                             "(wtf_tpu_torch/fleet/store)")
     _add_engine_args(sched)
+    _add_mesh_arg(sched)
 
     triage = sub.add_parser(
         "triage", help="batched crash triage on the device batch "
@@ -312,6 +342,7 @@ def build_parser() -> argparse.ArgumentParser:
     tmin.add_argument("--lanes", type=int, default=64,
                       help="candidates per dispatch")
     tmin.add_argument("--max-rounds", type=int, default=64)
+    _add_mesh_arg(tmin)
 
     tdis = tsub.add_parser(
         "distill", help="re-execute the corpus in one batched sweep, "
@@ -326,6 +357,7 @@ def build_parser() -> argparse.ArgumentParser:
                            "(wtf_tpu_torch/resume dir) instead of inputs/")
     tdis.add_argument("--limit", type=int, default=0)
     tdis.add_argument("--lanes", type=int, default=64)
+    _add_mesh_arg(tdis)
 
     tvb = tsub.add_parser(
         "vbreak", help="virtual-breakpoint replay: arm a breakpoint at "
@@ -356,6 +388,7 @@ def build_parser() -> argparse.ArgumentParser:
                      help="write captures as JSON")
     tvb.add_argument("--limit", type=int, default=0)
     tvb.add_argument("--lanes", type=int, default=64)
+    _add_mesh_arg(tvb)
 
     fuzz = sub.add_parser("fuzz", help="fuzz node (dials the master)")
     _add_common(fuzz)
@@ -387,6 +420,7 @@ def build_parser() -> argparse.ArgumentParser:
                            "coverage deltas against the master's ack "
                            "cursor — the escape hatch for masters that "
                            "predate WTF3 (--wire-v1 implies it)")
+    _add_mesh_arg(fuzz)
 
     master = sub.add_parser("master", help="master node (serves testcases)")
     _add_target_args(master)
@@ -408,9 +442,36 @@ def build_parser() -> argparse.ArgumentParser:
                              "views of it")
 
     fleet = sub.add_parser(
-        "fleet", help="fleet tier (wtf_tpu_torch/fleet): the corpus/crash "
-                      "store and the thousand-client soak")
+        "fleet", help="fleet tier (wtf_tpu_torch/fleet): elastic "
+                      "resharding, the corpus/crash store and the "
+                      "thousand-client soak")
     fsub = fleet.add_subparsers(dest="fleet_cmd", required=True)
+    fre = fsub.add_parser(
+        "reshard", help="resume a checkpointed campaign under a "
+                        "DIFFERENT --mesh-devices placement: coverage, "
+                        "crash buckets, corpus and devmut streams are "
+                        "placement-free, so the resumed run is "
+                        "bit-identical to never having moved")
+    _add_common(fre)
+    fre.add_argument("--checkpoint", type=Path, required=True,
+                     metavar="DIR",
+                     help="the campaign checkpoint dir to re-place; a "
+                          "running campaign writes one at every batch "
+                          "boundary under --checkpoint-every")
+    fre.add_argument("--runs", type=int, required=True,
+                     help="total testcase budget to finish (the budget "
+                          "is not part of the checkpoint)")
+    fre.add_argument("--limit", type=int, default=0)
+    fre.add_argument("--lanes", type=int, default=64,
+                     help="must equal the checkpoint's lane count (the "
+                          "lane count is the stream identity; lanes per "
+                          "shard is what resharding changes)")
+    fre.add_argument("--mutator",
+                     choices=("auto", "byte", "mangle", "tlv",
+                              "devmangle"), default="auto")
+    fre.add_argument("--max_len", type=int, default=1024 * 1024)
+    fre.add_argument("--seed", type=int, default=0)
+    _add_mesh_arg(fre)
     fso = fsub.add_parser(
         "soak", help="the chaos soak (wtf_tpu_torch/fleet/soak): N "
                      "simulated clients over the real wire with injected "
@@ -511,12 +572,14 @@ def _telemetry_for(args):
 
 
 def build_backend(target, args, registry: Registry, events=NULL,
-                  init_target: bool = True):
+                  init_target: bool = True, mesh=None):
     """The backend of one invocation, initialized and (unless
     `init_target` is False: the fuzz nodes arm the target themselves)
-    target-armed: the GpuBackend on --device, or the single-step oracle
-    for `--backend emu`.  Returns (backend, paths)."""
-    from wtf_tpu_torch.backend.gpu import GpuBackend
+    target-armed: the GpuBackend on --device (a MeshBackend with
+    --mesh-devices, or on the LaneMesh `mesh` — a multi-process one, or
+    one whose shards share a card, which no flag builds), or the
+    single-step oracle for `--backend emu`.  Returns (backend, paths)."""
+    from wtf_tpu_torch.backend import create_backend
     from wtf_tpu_torch.snapshot.loader import load_snapshot
 
     paths = _paths_from(args)
@@ -528,17 +591,23 @@ def build_backend(target, args, registry: Registry, events=NULL,
         else:
             raise SystemExit(f"target {target.name!r} has no snapshot "
                              f"factory and no --state dir was given")
-    if getattr(args, "backend", "gpu") == "emu":
-        from wtf_tpu_torch.backend.emu import EmuBackend
-
-        backend = EmuBackend(snapshot, limit=args.limit, registry=registry,
-                             events=events)
-    else:
-        backend = GpuBackend(snapshot, n_lanes=args.lanes, limit=args.limit,
-                             registry=registry, events=events,
-                             **_tuning_kwargs(args))
+    tuning = _tuning_kwargs(args)
+    if mesh is not None:
+        tuning["mesh"] = mesh
     with registry.spans.span("init"):
-        backend.initialize()
+        try:
+            backend = create_backend(getattr(args, "backend", "gpu"),
+                                     snapshot, n_lanes=args.lanes,
+                                     limit=args.limit, registry=registry,
+                                     events=events, **tuning)
+            backend.initialize()
+        except ValueError as e:
+            flag = tuning.get("mesh_devices")
+            if flag is None and mesh is None:
+                raise
+            # a mesh this machine or this run cannot take: no fallback
+            raise SystemExit(f"--mesh-devices {flag}: {e}" if mesh is None
+                             else f"{mesh}: {e}") from e
     if init_target:
         target.init(backend)
     return backend, paths
@@ -625,11 +694,13 @@ def mutator_for(target, rng: random.Random, max_len: int):
     return best_mangle_mutator(rng, max_len)
 
 
-def build_campaign(args, registry: Optional[Registry] = None, events=NULL):
+def build_campaign(args, registry: Optional[Registry] = None, events=NULL,
+                   mesh=None):
     """`campaign` up to its first batch: seed the corpus (left empty for
     the minset, which fills it from its own walk), build the mutator from
     --seed and the FuzzLoop, and with --resume restore the checkpoint
-    into it.  Returns the FuzzLoop."""
+    into it.  `mesh` is a LaneMesh to run on (see build_backend); with
+    --coordinator it is the processes' mesh.  Returns the FuzzLoop."""
     from wtf_tpu_torch.fuzz.corpus import Corpus
     from wtf_tpu_torch.fuzz.loop import FuzzLoop
     from wtf_tpu_torch.fuzz.mutator import create_mutator
@@ -645,9 +716,27 @@ def build_campaign(args, registry: Optional[Registry] = None, events=NULL):
     if args.resume and args.runs == 0:
         raise SystemExit("--resume applies to fuzz campaigns "
                          "(--runs > 0); minset replays are stateless")
+    joins = bool(args.coordinator or args.num_processes)
+    if args.megachunk and (joins or mesh is not None
+                           or args.mesh_devices is not None):
+        from wtf_tpu_torch.meshrun.runner import MESH_WINDOW_UNPORTED
+
+        raise SystemExit(f"--mesh-devices {args.mesh_devices}: "
+                         f"{MESH_WINDOW_UNPORTED}")
+    if joins:
+        # a multi-process launch joins torch.distributed (gloo) first, and
+        # the campaign runs on the global mesh of every process's shards
+        # (the first --mesh-devices cards each, N shards of the CPU)
+        from wtf_tpu_torch.meshrun.mesh import init_multihost, make_mesh
+
+        mesh = init_multihost(
+            coordinator=args.coordinator, num_processes=args.num_processes,
+            process_id=args.process_id,
+            devices=make_mesh(args.mesh_devices, args.device).devices)
     target = _lookup_target(args)
     registry = registry if registry is not None else Registry()
-    backend, paths = build_backend(target, args, registry, events)
+    backend, paths = build_backend(target, args, registry, events,
+                                   mesh=mesh)
     rng = random.Random(args.seed or None)
     store = None
     if args.store:
@@ -683,7 +772,8 @@ def build_campaign(args, registry: Optional[Registry] = None, events=NULL):
     return loop
 
 
-def campaign(args, registry: Optional[Registry] = None, events=NULL):
+def campaign(args, registry: Optional[Registry] = None, events=NULL,
+             mesh=None):
     """`campaign`: build it (build_campaign) and run the fuzz loop until
     --runs testcases (or the first crash with --stop-on-crash).  Returns
     the FuzzLoop.  A device the supervisor cannot rebuild in this process
@@ -691,7 +781,7 @@ def campaign(args, registry: Optional[Registry] = None, events=NULL):
     checkpoint."""
     from wtf_tpu_torch.supervise import DeviceLost
 
-    loop = build_campaign(args, registry, events)
+    loop = build_campaign(args, registry, events, mesh)
     try:
         loop.fuzz(runs=args.runs, print_stats=True,
                   stop_on_crash=args.stop_on_crash)
@@ -748,6 +838,12 @@ def cmd_campaign(args) -> int:
         loop = campaign(args, registry, events)
         print(loop.stats.line(len(loop.corpus), loop._coverage()))
         loop.backend.print_run_stats()
+        if loop.reshard_to is not None:
+            # the supervisor's bottom rung stopped a failing mesh campaign
+            print(f"reshard requested at batch {loop.batches_done}: "
+                  f"continue with `fleet reshard --checkpoint "
+                  f"{loop.checkpoint_dir} --mesh-devices "
+                  f"{loop.reshard_to} --runs {args.runs}`")
         return 0 if loop.stats.crashes == 0 else 2
 
 
@@ -767,10 +863,12 @@ def sched(args, registry: Optional[Registry] = None, events=NULL):
         from wtf_tpu_torch.fleet.store import FleetStore
 
         store = FleetStore(args.store, registry=registry, events=events)
+    tuning = _tuning_kwargs(args)
+    mesh_devices = tuning.pop("mesh_devices", None)
     scheduler = Scheduler(jobs, n_lanes=args.lanes, workdir=args.workdir,
                           limit=args.limit, quantum=args.quantum,
-                          registry=registry, events=events,
-                          backend_tuning=_tuning_kwargs(args), store=store)
+                          mesh_devices=mesh_devices, registry=registry,
+                          events=events, backend_tuning=tuning, store=store)
     return scheduler, scheduler.run(max_rounds=args.max_rounds)
 
 
@@ -1024,9 +1122,12 @@ def cmd_master(args) -> int:
 
 
 def cmd_fleet(args) -> int:
-    """`fleet {soak,fsck}` — the fleet tier (wtf_tpu_torch/fleet)."""
+    """`fleet {reshard,soak,fsck}` — the fleet tier
+    (wtf_tpu_torch/fleet)."""
     import json
 
+    if args.fleet_cmd == "reshard":
+        return fleet_reshard(args)
     if args.fleet_cmd == "soak":
         import tempfile
 
@@ -1054,6 +1155,56 @@ def cmd_fleet(args) -> int:
           + (" — repaired" if args.repair else ""))
     broken = report["torn"] or report["missing"] or report["orphans"]
     return 0 if (args.repair or not broken) else 1
+
+
+def fleet_reshard(args) -> int:
+    """Resume a checkpointed campaign under a different --mesh-devices
+    placement (wtf_tpu_torch/fleet/elastic).  Checkpoints are
+    placement-free and the devmut stream does not depend on the shard
+    count, so the resumed run is bit-identical to one that never moved."""
+    from wtf_tpu_torch.fleet.elastic import (
+        describe_checkpoint, run_elastic, validate_placement,
+    )
+    from wtf_tpu_torch.fuzz.corpus import Corpus
+    from wtf_tpu_torch.fuzz.loop import FuzzLoop
+    from wtf_tpu_torch.fuzz.mutator import create_mutator
+    from wtf_tpu_torch.resume import CheckpointError, load_campaign
+
+    try:
+        info = describe_checkpoint(args.checkpoint)
+        state, _ = load_campaign(args.checkpoint)
+        validate_placement(state, args.mesh_devices)
+    except (CheckpointError, ValueError) as e:
+        print(f"reshard: {e}")
+        return 1
+    cfg = info["config"]
+    print(f"reshard: checkpoint at batch {info['batches']} "
+          f"({cfg.get('lanes')} lanes on "
+          f"{cfg.get('mesh_devices') or 1} device(s), "
+          f"{info['corpus']} corpus entries) -> "
+          f"{args.mesh_devices or 1} device(s)")
+    target = _lookup_target(args)
+    with _telemetry_for(args) as (registry, events):
+
+        def build_loop(mesh_devices):
+            placed = argparse.Namespace(**{**vars(args),
+                                           "mesh_devices": mesh_devices})
+            backend, paths = build_backend(target, placed, registry, events)
+            rng = random.Random(args.seed or None)
+            corpus = Corpus(outputs_dir=paths.outputs, rng=rng)
+            mutator = (mutator_for(target, rng, args.max_len)
+                       if args.mutator == "auto"
+                       else create_mutator(args.mutator, rng, args.max_len))
+            return FuzzLoop(backend, target, mutator, corpus,
+                            crashes_dir=paths.crashes, registry=registry,
+                            events=events, checkpoint_dir=args.checkpoint,
+                            checkpoint_every=1)
+
+        loop = run_elastic(build_loop, args.runs, args.checkpoint,
+                           start_devices=args.mesh_devices, resume=True,
+                           print_stats=True)
+        print(loop.stats.line(len(loop.corpus), loop._coverage()))
+        return 0 if loop.stats.crashes == 0 else 2
 
 
 def _derived_status_rows(metrics: dict) -> List[str]:

@@ -127,12 +127,17 @@ class DevMangleMutator(Mutator):
         # device anyway, so the wait costs nothing here, and without it a
         # hang would block that read, outside every seam
         out = self.runner.supervisor.dispatch(
-            "devmut-generate", self.runner.devmut_generate, self.rounds,
+            "devmut-generate", self.generate, self.rounds,
             data, lens, cumw, seeds, sync=lambda o: o[1])
         self._batch += 1
         self.stats["batches"] += 1
         self.stats["generated"] += self.n_lanes
         return out
+
+    def generate(self, rounds: int, data, lens, cumw, seeds):
+        """One batch through the runner's generator (per shard on a
+        mesh)."""
+        return self.runner.devmut_generate(rounds, data, lens, cumw, seeds)
 
     def prelaunch(self) -> None:
         """Generate the NEXT batch now, from the slab as it stands (the

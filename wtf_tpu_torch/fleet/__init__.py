@@ -1,7 +1,6 @@
 """Fleet tier: the distribution layer that scales the master/node plane
 from a handful of ad-hoc clients to a serving system (a copy of
-wtf_tpu/fleet, imports rewritten; elastic resharding waits for the
-port's multi-device runner).
+wtf_tpu/fleet, imports rewritten).
 
   delta.py      streaming coverage deltas over the WTF2 wire (WTF3 hello /
                 TAG_COVDELTA frames): results carry only newly-set
@@ -12,6 +11,9 @@ port's multi-device runner).
                 named blobs in sharded fanout dirs, dedup on write, a
                 manifest journal, crash intake deduped by the triage
                 bucket, per-tenant namespaces
+  elastic.py    elastic campaigns: checkpoint a running campaign at a
+                batch boundary and resume it bit-identically under a
+                different --mesh-devices placement
   telemetry.py  the master's fleet aggregate of node TAG_TELEM snapshots
                 and its exports (status.json, telemetry.prom)
   soak.py       the proof harness: hundreds-to-1000 simulated clients over

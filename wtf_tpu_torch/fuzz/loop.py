@@ -6,10 +6,11 @@ and the megachunk window (wtf_tpu_torch/fuzz/megachunk.py), with
 supervision (wtf_tpu_torch/supervise: every batch under the snapshot ->
 dispatch -> recover-and-replay wrapper) and crash-safe checkpoints
 (wtf_tpu_torch/resume: `checkpoint_every` batches into `checkpoint_dir`),
-the minset mode (`minset`, on the triage replay core) and the fleet
-store (wtf_tpu_torch/fleet/store: finds and crashes journaled
-content-addressed, outputs/ and crashes/ their flat views).  Resharding
-and the --xprof-dir profiler window are not part of it.
+the minset mode (`minset`, on the triage replay core), the fleet store
+(wtf_tpu_torch/fleet/store: finds and crashes journaled
+content-addressed, outputs/ and crashes/ their flat views) and the
+elastic reshard hook (`reshard_policy`, wtf_tpu_torch/fleet/elastic).
+The --xprof-dir profiler window is not part of it.
 
 This is the single-process campaign loop — the reference needs a master
 process + N client processes even on one machine (README.md:34-110); here
@@ -198,6 +199,10 @@ class FuzzLoop:
                 raise ValueError(
                     "--megachunk needs a nonzero --limit: the window's "
                     "quiesce stops on the instruction budget")
+            if getattr(backend, "mesh", None) is not None:
+                from wtf_tpu_torch.meshrun.runner import MESH_WINDOW_UNPORTED
+
+                raise ValueError(MESH_WINDOW_UNPORTED)
         self._runs_budget = 0
         self.stats = CampaignStats(self.registry)
         self.stats_every = stats_every
@@ -210,6 +215,13 @@ class FuzzLoop:
         self._requeue: list = []
         self._requeue_digests = set()
         self.batches_done = 0
+        # elastic-campaign policy hook (wtf_tpu_torch/fleet/elastic): a
+        # callable(loop) -> Optional[int] consulted at every batch
+        # boundary; returning a device count checkpoints the campaign and
+        # hands control back to its caller (run_elastic), which re-places
+        # it onto that many devices and resumes bit-identically
+        self.reshard_policy = None
+        self.reshard_to: Optional[int] = None
         # crash-safe checkpointing (wtf_tpu_torch/resume): every
         # `checkpoint_every` batches the minimal resumable state lands in
         # `checkpoint_dir` atomically; a kill at any point costs at most
@@ -574,14 +586,42 @@ class FuzzLoop:
         """Run until `runs` testcases executed (0 = forever; the CLI maps
         --runs=0 to `minset` instead, matching the reference)."""
         self._runs_budget = runs
+        self.reshard_to = None
         while runs == 0 or self.stats.testcases < runs:
             found = self.run_one_batch()
             self.batches_done += 1
             self._maybe_checkpoint()
+            if self._maybe_reshard():
+                break
             self._heartbeat(print_stats)
             if stop_on_crash and found:
                 break
         return self.stats
+
+    def _maybe_reshard(self) -> bool:
+        """The elastic-campaign policy hook (wtf_tpu_torch/fleet/elastic):
+        at each batch boundary the policy may name a new device count;
+        the loop then checkpoints (placement-free) and stops, leaving
+        `reshard_to` for run_elastic to rebuild against.  True when a
+        reshard was requested."""
+        if self.reshard_policy is None:
+            return False
+        want = self.reshard_policy(self)
+        if want is None:
+            return False
+        if self.checkpoint_dir is None:
+            raise ValueError("resharding needs a checkpoint_dir")
+        from wtf_tpu_torch.resume import save_campaign
+
+        self.reshard_to = int(want)
+        # count BEFORE the save: the checkpoint's counter state carries
+        # the reshard tally across placements
+        self.registry.counter("campaign.reshards").inc()
+        self.events.emit("reshard", batch=self.batches_done,
+                         devices=self.reshard_to,
+                         testcases=self.stats.testcases)
+        save_campaign(self, self.checkpoint_dir)
+        return True
 
     def _maybe_checkpoint(self) -> None:
         """--checkpoint-every cadence: persist the resumable state at the

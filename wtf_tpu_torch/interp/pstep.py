@@ -157,6 +157,11 @@ def fused_step(tab: UopTable, image: MemImage, m: Machine, limit: int,
     launch the kernel; CPU tensors run the plain version.  Every input
     must lie on the machine's device."""
     image = lane_image(image, m.n_lanes)
+    if image.tenant.shape[0] != m.n_lanes:
+        raise KernelArgumentError(
+            f"fused_step: the image's tenant row has "
+            f"{image.tenant.shape[0]} lanes, the machine {m.n_lanes} (a "
+            f"mesh shard takes its slice of the row)")
     for name, t in (("hash_tab", tab.hash_tab), ("meta_i32", tab.meta_i32),
                     ("meta_u64", tab.meta_u64), ("pages", image.pages),
                     ("frame_table", image.frame_table),
@@ -190,6 +195,12 @@ def _launch(tab: UopTable, image: MemImage, m: Machine, limit: int,
     n = m.n_lanes
     image = lane_image(image, n)
     dev = m.device
+    if dev.type == "cuda" and torch.cuda.current_device() != dev.index:
+        # a ctypes launch runs on the thread's current device
+        raise KernelArgumentError(
+            f"fused_step: the machine is on {dev} but the current device "
+            f"is cuda:{torch.cuda.current_device()} (launch a shard under "
+            f"torch.cuda.device(its device))")
     ov = m.overlay
     slots = ov.pfn.shape[1]
     cap = tab.meta_i32.shape[0]

@@ -187,10 +187,8 @@ class HostView:
         slots = np.nonzero(self._ov_pfn[lane] == pfn)[0]
         if len(slots) == 0:
             return None
-        slot = int(slots[0])
-        ov = self.runner.machine.overlay
-        data = ov.data[lane, slot].cpu().numpy().view(np.uint64)
-        valid = ov.valid[lane, slot].cpu().numpy()
+        data, valid = self.runner.overlay_row(lane, int(slots[0]))
+        data = data.view(np.uint64)
         # delta row: only valid words come from the overlay
         base = np.frombuffer(self._base_page(lane, pfn), dtype=np.uint64)
         return np.where(valid != 0, data, base).tobytes()
@@ -595,6 +593,7 @@ class Runner:
             self.tenant_of_lane = built.tenant_of_lane
             self._physmems = built.physmems
             self._cpu0s = built.cpus
+        self._edge_words = self.machine.edge.shape[1]
         self.limit = 0
         self.chunk_steps = chunk_steps
         # Auto mode delivers guest exceptions when a snapshot carries an
@@ -681,6 +680,13 @@ class Runner:
 
     def view(self) -> HostView:
         return HostView(self)
+
+    def overlay_row(self, lane: int, slot: int):
+        """(data int64[PAGE_WORDS], valid uint8[PAGE_WORDS]) of one
+        overlay row, on the host (the HostView's lazy page fetch)."""
+        ov = self.machine.overlay
+        return (ov.data[lane, slot].cpu().numpy(),
+                ov.valid[lane, slot].cpu().numpy())
 
     # -- checkpoint/resume (wtf_tpu_torch/resume) --------------------------
     def checkpoint_state(self) -> dict:
@@ -807,9 +813,14 @@ class Runner:
             m.edge = apply_bits(m.edge, self._pending_edge)
             self._pending_edge.clear()
         if view.pending:
-            _apply_page_writes(m, [(lane, pfn, page) for (lane, pfn), page
-                                   in sorted(view.pending.items())])
+            self._apply_pages([(lane, pfn, page) for (lane, pfn), page
+                               in sorted(view.pending.items())])
             view.pending.clear()
+
+    def _apply_pages(self, items) -> None:
+        """Buffered whole-page host writes [(lane, pfn, page bytes)],
+        sorted by (lane, pfn), into the overlay (`_apply_page_writes`)."""
+        _apply_page_writes(self.machine, items)
 
     # -- servicing ---------------------------------------------------------
     def _decode_at(self, view: HostView, lane: int, rip: int,
@@ -1079,7 +1090,7 @@ class Runner:
             return
         budget = min(32 << min(streak, 6), 1024)
         any_budget = 24 if (streak >= 4 and self.burst_any_tier) else 0
-        ebits = self.machine.edge.shape[1] * 32
+        ebits = self._edge_words * 32
         from wtf_tpu_torch.utils.hashing import mix64
 
         while budget > 0:
@@ -1304,12 +1315,15 @@ class Runner:
         """Every lane back to the snapshot: O(1) overlay reset + register
         copy, in place."""
         with self.registry.spans.span("overlay-restore") as sp:
-            machine_restore(self.machine, self.template)
+            self._restore_machine()
             sp.fence(self.machine.status)
         self.lane_errors.clear()
         self._pending_cov.clear()
         self._pending_edge.clear()
         self._smc_updates.clear()
+
+    def _restore_machine(self) -> None:
+        machine_restore(self.machine, self.template)
 
     def statuses(self) -> np.ndarray:
         return self.machine.status.cpu().numpy()
@@ -1336,3 +1350,23 @@ class Runner:
         self.fold_counter_totals(ctr.sum(axis=0, dtype=np.uint64))
         return ctr
 
+
+def warm_decode_cache(runner: Runner, target, payload: bytes,
+                      limit: int = 100_000) -> int:
+    """Populate the runner's decode cache by running `payload` once on the
+    host EmuCpu oracle and decoding every reached rip (the JAX package's
+    `warm_decode_cache`: host work only).  Returns the rips decoded."""
+    from wtf_tpu_torch.backend.emu import EmuBackend
+
+    eb = EmuBackend(runner.snapshot, limit=limit)
+    eb.initialize()
+    target.init(eb)
+    target.insert_testcase(eb, payload)
+    eb.run()
+    view = runner.view()
+    n = 0
+    for rip in sorted(eb.last_new_coverage()):
+        if not runner.cache.has(rip):
+            runner._decode_at(view, 0, rip)
+            n += 1
+    return n

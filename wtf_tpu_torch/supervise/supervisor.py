@@ -189,6 +189,9 @@ class Supervisor:
         self._base_steps = 256      # refined by attach_runner
         self.n_lanes = 0
         self.device = None
+        # weakref.ref to the backend that owns this supervisor (its mesh
+        # is what the reshard rung halves)
+        self.backend_ref = None
         # (thread, timeout) of the last dispatch a real watchdog fire
         # abandoned: recover() waits for the device to drain first
         self._abandoned = None
@@ -208,6 +211,14 @@ class Supervisor:
 
         self.ladder = DegradationLadder(loop, self.promote_after)
         self.apply_rung(loop)
+        # bottom-of-ladder escape hatch on a mesh with checkpoints:
+        # persistent failures stop the campaign for run_elastic
+        # at half the shard count (placement-free checkpoints make the
+        # shrink bit-identical)
+        if (loop.reshard_policy is None
+                and loop.checkpoint_dir is not None
+                and getattr(loop.backend, "mesh", None) is not None):
+            loop.reshard_policy = self.reshard_request
 
     @property
     def megachunk_disabled(self) -> bool:
@@ -545,6 +556,22 @@ class Supervisor:
     def apply_rung(self, loop) -> None:
         if self.ladder is not None:
             self.ladder.apply(loop)
+
+    # -- the elastic mesh rung (wtf_tpu_torch/fleet/elastic) -----------------
+    def reshard_request(self, loop) -> Optional[int]:
+        """A reshard_policy-shaped hook (callable(loop) -> Optional[int]):
+        when the ladder is already at its bottom rung and failures keep
+        coming, ask run_elastic to re-place the campaign on half
+        the mesh."""
+        del loop
+        if self.ladder is None or not self.ladder.wants_reshard:
+            return None
+        backend = self.backend_ref() if self.backend_ref else None
+        mesh = getattr(backend, "mesh", None)
+        if mesh is None or mesh.size <= 1 or mesh.world > 1:
+            return None  # processes would have to agree on the new mesh
+        self.ladder.wants_reshard = False
+        return max(1, mesh.size // 2)
 
     # -- heartbeat -----------------------------------------------------------
     def heartbeat_fields(self) -> dict:

@@ -27,15 +27,15 @@ Two tiers:
       Telemetry lands under per-tenant `tenant.<name>.*` namespaces with
       tenant-tagged JSONL events.
 
-The mesh-sharded tenancy batch of the JAX package is not part of the
-port (`create_tenancy_backend(mesh_devices=...)` raises).
+`create_tenancy_backend(mesh_devices=N)` (and `sched --mesh-devices N`)
+runs the shared batch over a lane mesh (`TenancyMeshBackend`).
 """
 
 from wtf_tpu_torch.tenancy.image import (  # noqa: F401
     BatchState, build_batch_state, stack_images,
 )
 from wtf_tpu_torch.tenancy.backend import (  # noqa: F401
-    TenancyBackend, TenantSpec, create_tenancy_backend,
+    TenancyBackend, TenancyMeshBackend, TenantSpec, create_tenancy_backend,
 )
 from wtf_tpu_torch.tenancy.loop import (  # noqa: F401
     MultiTenantLoop, TenantRuntime,

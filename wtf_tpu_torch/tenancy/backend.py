@@ -7,10 +7,10 @@ GpuBackend into a SERVING backend: lane ranges belong to tenants, one
 step engine (K1 and the precise step over a stacked image), and the
 coverage merge splits into per-tenant bit-planes by lane-ID masks — each
 tenant's new-coverage credit is computed against ITS aggregate with the
-prefix scan restricted to ITS lanes (`merge_coverage` called once per
-tenant with that tenant's aggregate and lane mask), so a tenant's results
-are bit-identical to the same campaign run alone.  The single-image
-paths keep GpuBackend's `_merge` and its one aggregate.
+prefix scan restricted to ITS lanes (the backend's `_merge_lanes` called
+once per tenant with that tenant's aggregate and lane mask), so a
+tenant's results are bit-identical to the same campaign run alone.  The
+single-image paths keep GpuBackend's `_merge` and its one aggregate.
 
 Breakpoints key by (tenant, gva): `tenant_context(t)` scopes a target's
 init-time registrations (and the backend's symbol store) to its lanes,
@@ -18,8 +18,11 @@ and dispatch routes by the faulting lane's tenant — two base images
 sharing a virtual address never see each other's handlers (the decode
 cache splits the entries by the same tag).
 
-The mesh-sharded variant of the JAX package (`TenancyMeshBackend`) is not
-part of the port: `create_tenancy_backend(mesh_devices=...)` raises.
+`TenancyMeshBackend` runs the same batch over a lane mesh
+(meshrun/backend.py): lane quotas need not align with shard boundaries —
+the per-tenant include masks go to the mesh merge cut with the lanes,
+and its all-gather of per-shard unions carries the cross-shard prefix;
+the image's `tenant` row is cut with the lanes too.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ import torch
 
 from wtf_tpu_torch.backend.gpu import GpuBackend
 from wtf_tpu_torch.core.results import StatusCode, TestcaseResult
-from wtf_tpu_torch.meshrun.reduce import merge_coverage
+from wtf_tpu_torch.meshrun.backend import MeshBackend
 
 
 @dataclasses.dataclass
@@ -139,14 +142,11 @@ class _TenancyMixin:
                     & lane_ok)
             new_lane = np.zeros(self.n_lanes, dtype=bool)
             for t in range(len(self.tenant_specs)):
-                inc = torch.from_numpy(base & self._lane_masks[t]).to(
-                    m.device)
                 (self._agg_cov_t[t], self._agg_edge_t[t], nl,
-                 nw) = merge_coverage(self._agg_cov_t[t],
-                                      self._agg_edge_t[t], m.cov, m.edge,
-                                      inc)
-                self._new_words_t[t] = nw.cpu().numpy().view(np.uint32)
-                new_lane |= nl.cpu().numpy()
+                 self._new_words_t[t]) = self._merge_lanes(
+                    self._agg_cov_t[t], self._agg_edge_t[t],
+                    base & self._lane_masks[t])
+                new_lane |= nl
             self._new_lane = new_lane
             # global roll-up (heartbeat coverage display, minset compat)
             self._agg_cov = reduce(torch.bitwise_or, self._agg_cov_t)
@@ -263,12 +263,20 @@ class TenancyBackend(_TenancyMixin, GpuBackend):
         self._init_tenancy(specs)
 
 
+class TenancyMeshBackend(_TenancyMixin, MeshBackend):
+    """Mesh-sharded multi-tenant batch."""
+
+    def __init__(self, specs: Sequence[TenantSpec], n_lanes: int,
+                 mesh_devices: Optional[int] = None, **kwargs):
+        super().__init__(specs[0].snapshot, n_lanes=n_lanes,
+                         mesh_devices=mesh_devices, **kwargs)
+        self._init_tenancy(specs)
+
+
 def create_tenancy_backend(specs: Sequence[TenantSpec], n_lanes: int,
                            mesh_devices: Optional[int] = None,
                            **kwargs):
     if mesh_devices is not None:
-        raise ValueError(
-            "a mesh-sharded tenancy batch (mesh_devices) is not part of "
-            "the port yet: it arrives with the multi-device item "
-            "(ROADMAP A13)")
+        return TenancyMeshBackend(specs, n_lanes,
+                                  mesh_devices=mesh_devices, **kwargs)
     return TenancyBackend(specs, n_lanes, **kwargs)

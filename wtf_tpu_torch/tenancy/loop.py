@@ -97,6 +97,14 @@ class TenantDevMutator(DevMangleMutator):
             gauges=("corpus_slots",))
         self.n_lanes = self.quota
 
+    def generate(self, rounds: int, data, lens, cumw, seeds):
+        """The plain engine on the runner's first device: a quota-sized
+        batch need not divide over a mesh's shards, and the per-lane
+        program makes the stream placement-invariant."""
+        from wtf_tpu_torch.devmut.engine import generate
+
+        return generate(data, lens, cumw, seeds, rounds)
+
 
 class TenantRuntime:
     """One campaign-as-job bound to a lane range of the shared batch."""

@@ -119,6 +119,7 @@ class Scheduler:
 
     def __init__(self, jobs: Sequence[Job], n_lanes: int, workdir,
                  limit: int = 0, quantum: int = 4,
+                 mesh_devices: Optional[int] = None,
                  registry: Optional[Registry] = None, events=None,
                  backend_tuning: Optional[dict] = None,
                  stats_every: float = 10.0, store=None):
@@ -138,6 +139,7 @@ class Scheduler:
         self.workdir = Path(workdir)
         self.limit = limit
         self.quantum = max(int(quantum), 1)
+        self.mesh_devices = mesh_devices
         self.registry, self.events = telemetry.resolve(
             None, registry, events)
         self.backend_tuning = dict(backend_tuning or {})
@@ -197,7 +199,8 @@ class Scheduler:
                             lanes=job.lanes)
                  for job in placed]
         backend = create_tenancy_backend(
-            specs, self.n_lanes, limit=self.limit, registry=self.registry,
+            specs, self.n_lanes, mesh_devices=self.mesh_devices,
+            limit=self.limit, registry=self.registry,
             events=self.events, **self.backend_tuning)
         with self.registry.spans.span("sched-place"):
             backend.initialize()
