@@ -38,7 +38,7 @@ Phases (each prints one line; any failure exits non-zero):
      there; then the same campaign again under torch.profiler, for the
      card's busy time (the union of its kernel and copy intervals) and
      so the host's share of the first run's wall
-  6. a 64-lane, 256-run campaign at the same seed on the card and on the
+  6. a 64-lane, 128-run campaign at the same seed on the card and on the
      CPU: equal corpus digests, crash names and coverage/edge bitmaps
   7. the precise step's integer and system classes on the card against the
      CPU: 4096 seeded random lanes whose next instruction is DIV/IDIV at
@@ -56,7 +56,7 @@ Phases (each prints one line; any failure exits non-zero):
      crash names, device memory
   9. demo_kernel and demo_usermode card against CPU: `run` on the crash
      classes and benign inputs of tests/test_kernel.py and the cases of
-     tests/test_usermode.py, and a 64-lane, 256-run campaign of each at
+     tests/test_usermode.py, and a 64-lane, 128-run campaign of each at
      the same seed: equal results, crash names, corpus digests and
      coverage/edge bitmaps
  10. the third main path, device mutation in megachunk windows:
@@ -96,22 +96,22 @@ Phases (each prints one line; any failure exits non-zero):
      campaign with --state on the padded dump: results equal phase 8's,
      the native parser must have parsed it; dump bytes, parse,
      PhysMem.from_pages and upload seconds, device peak
- 16. demo_maze, demo_ioctl and demo_fs campaigns at 4096 lanes x 16384
+ 16. demo_maze, demo_ioctl and demo_fs campaigns at 4096 lanes x 8192
      runs, each seeded with its reference test's input, counts zeroed
      just before and read just after: the native host mutator, K1 launched, no
      oracle fallback, every lane terminal; execs/s, K1 launches per
      batch, occupancy, spans, breakpoint services (demo_fs); K1 against
      its plain version on a crafted batch start of each (payloads at
      ioctl's page end); a profiled rerun of demo_fs for the host share
- 17. a 64-lane, 256-run campaign of demo_maze, demo_ioctl, demo_fs and
+ 17. a 64-lane, 128-run campaign of demo_maze, demo_ioctl, demo_fs and
      demo_spin on the card and on the CPU: equal results
  18. demo_spin deep, bench.py's chip workload (1024 lanes, max_len 4, the
      native engine behind bench's spin-count cap, --fused-k 32) at limit
-     125,000: a warm-up batch with K1 rounds 3,000-3,100 traced by
-     torch.profiler, then unprofiled batches for 10 s; execs/s,
-     instructions/s, timeout fraction, K1 launches per batch and per
-     second, K1's and the resume legs' shares of the wall, the host
-     share of the traced rounds against their unprofiled wall
+     50,000: one batch with K1 rounds 1,000-1,100 traced by
+     torch.profiler; execs/s, instructions/s, timeout fraction, K1
+     launches per batch and per second, K1's and the resume legs' shares
+     of the wall, the host share of the traced rounds against the
+     unprofiled wall of the 100 rounds before them
  19. the precise step's SSE, SSE-FP and x87 classes on the card against
      the CPU: 4096 seeded random lanes whose next instruction is one of
      ~170 forms (moves and merges, the byte ALU, every SSE-FP op at f32
@@ -138,11 +138,7 @@ Phases (each prints one line; any failure exits non-zero):
      supervised windows and the supervised host finish): its final line,
      outputs/, crashes/ and cov/edge bytes equal phase 10's; supervised
      dispatches by seam, bounded waits, the integrity, snapshot and
-     checkpoint spans' shares of the wall, checkpoint bytes and seconds;
-     then, in turns with that run, phase 10's campaign writing a target
-     dir (T) and supervised without checkpoints (S): each equal, and the
-     mean wall differences that the target dir, the supervisor and the
-     checkpoints cost
+     checkpoint spans' shares of the wall, checkpoint bytes and seconds
  22. scripted faults at full width, one plan (a hang on K1's `fused`
      seam, an error on a window, a poison on an insert, a hang on a
      generation; promote_after 1): replayed bit-identically, equal to
@@ -250,18 +246,36 @@ Phases (each prints one line; any failure exits non-zero):
      bitmaps, equal to the one-process merge_coverage
  36. the 64-lane x 8-shard twin of phase 33 (128 runs) on the card and,
      in a worker process, on the CPU: equal
+ 37. the mesh window: phase 10's window campaign (--megachunk 8
+     --fused-step on) on a LaneMesh of 4 shards of cuda:0 (1024 lanes
+     each), counts zeroed just before and read just after: equal to
+     phase 10's single-device window (final line, corpus, crashes,
+     cov/edge bytes, statuses, the last devmut batch, ctr totals); K1's
+     launches per shard (`device.shard_fused_dispatches`) summing to the
+     phase's; windows, batches per window, incomplete windows, the legs'
+     share of the wall, execs/s against phase 10, device peak; K1 on each
+     shard against its plain version on a batch start and its ms per
+     dispatch at the shard's 1024 lanes beside its bound
+ 38. phase 13's --device-decode window campaign on the same mesh: equal
+     to phase 13, the decode cache's entries in slot order included, 0
+     cross-check mismatches; service rounds, zero-host windows, the
+     service span
+ 39. the 64-lane x 4-shard --device-decode window twin (128 runs) on the
+     card and, in a worker process, on the CPU: equal, decode-cache
+     entries included
 
 Phase 8 fails unless its host mutator is the native engine (the one the
 reference CLI picks).  Every phase always runs, at the sizes above.
 The card is one: the mesh phases' shards share it, so they exercise the
 per-shard paths and say nothing of a mesh of several cards.
-Phases 6, 9, 11, 14, 17, 28, 32 and 36 and the comparisons of phases 20-26
-run last, after the timed phases: their CPU sides run in worker processes started
-together (spawned, and joined before the script ends) while this process
-runs their card sides.  The line before the kernels' JSON record gives
-the seconds the phases took; the card's nvidia-smi line
-comes before the last, the kernels' JSON record before that; the last
-line is {"ok": true, "device": {...}}.  Without a CUDA device, or without the rest
+Phases 6, 9, 11, 14, 17, 28, 32, 36 and 39 and the comparisons of phases
+20-26 run last, after the timed phases: their CPU sides run in worker
+processes started together (spawned, and joined before the script ends)
+while this process runs their card sides, each as soon as its CPU sides
+have ended.  The line before the kernels' JSON record gives the seconds
+the phases took; the card's nvidia-smi line comes before the last, the
+kernels' JSON record before that; the last line is {"ok": true,
+"device": {...}}.  Without a CUDA device, or without the rest
 of the repository beside it, the script exits non-zero before printing
 any result.
 """
@@ -351,7 +365,8 @@ QUARANTINE_LANE = 9
 # reference's verify recipe (the loop head `cmp r8, r9`, second arrival)
 VBREAK_AT = ["--break-at", "tlv!parse+0x12", "--hit", "2"]
 TWIN_LANES = 64                 # the 64-lane twins, card == cpu
-TARGET_RUNS = 16384             # phase 16's campaigns
+TWIN_RUNS_SMALL = 128           # phases 6, 9 and 17's twin campaigns
+TARGET_RUNS = 8192              # phase 16's campaigns
 TWIN_CORPUS = 96                # the twins' corpus: the largest files
 # wtf_tpu/testing/triage_smoke.py's crasher (junk records around a type-3
 # stack smash) and its known-minimal reproducer: the twins' minimize
@@ -373,11 +388,11 @@ NEW_TARGETS = ("demo_maze", "demo_ioctl", "demo_fs")
 TARGET_SEEDS = {"demo_maze": [b"aaaa"],
                 "demo_ioctl": [b"\x03\x20\x22\x00\x02\x00AB"],
                 "demo_fs": [b"HELLOWORLD123456"]}
-# phase 18: bench.py's deep workload, its limit cut from 10M
+# phase 18: bench.py's deep workload, its limit cut from 10M, one batch
+# (a batch lasts about one ~35 ms precise leg per finishing lane)
 SPIN_LANES = 1024
-SPIN_LIMIT = 125_000
-SPIN_SECONDS = 10.0
-SPIN_WINDOW = (3_000, 3_100)           # K1 rounds traced for the host share
+SPIN_LIMIT = 50_000
+SPIN_WINDOW = (1_000, 1_100)           # K1 rounds traced for the host share
 SPIN_SMALL_LIMIT = 500                 # phase 17's 64-lane demo_spin
 TERMINAL = {"OK", "CRASH", "TIMEDOUT", "PAGE_FAULT", "OVERLAY_FULL",
             "CR3_CHANGE", "DIVIDE_ERROR", "HARD_ERROR"}
@@ -1288,18 +1303,19 @@ def profiled_rerun(phase: str, argv: list, rec: dict, k1_launches: int,
 
 
 def small_campaign(name: str, device: str, limit: int = 20000,
-                   extra: tuple = (), seeded: bool = False) -> tuple:
+                   extra: tuple = (), seeded: bool = False,
+                   runs: int = 256) -> tuple:
     """(corpus digests, crash names, cov bytes, edge bytes, statuses,
-    seconds) of a 64-lane, 256-run campaign at seed 5 on `device`
-    (`extra`: more campaign flags; `seeded`: inputs/ holds the target's
-    seed input)."""
+    seconds) of a 64-lane campaign of `runs` testcases at seed 5 on
+    `device` (`extra`: more campaign flags; `seeded`: inputs/ holds the
+    target's seed input)."""
     from wtf_tpu_torch import cli
 
     with tempfile.TemporaryDirectory() as tmp:
         a = cli.build_parser().parse_args(
             ["campaign", "--name", name, "--fused-step", "on", "--lanes",
-             "64", "--runs", "256", "--limit", str(limit), "--max_len", "96",
-             "--seed", "5", "--device", device, *extra,
+             "64", "--runs", str(runs), "--limit", str(limit),
+             "--max_len", "96", "--seed", "5", "--device", device, *extra,
              *(seeded_target(name, tmp) if seeded else [])])
         t0 = time.perf_counter()
         loop = cli.campaign(a)
@@ -1342,19 +1358,23 @@ def replay_runs(name: str, inputs: dict, device: str) -> list:
 
 
 def cpu_job(fn, threads: int, *args):
-    """Run fn(*args) in a worker process on `threads` CPU threads."""
+    """Run fn(*args) in a worker process on `threads` CPU threads, at a
+    lower scheduling priority than this script's own process, whose
+    card sides of the twins would otherwise wait behind the workers for
+    a core."""
     import torch
 
+    os.nice(10)
     torch.set_num_threads(threads)
     return fn(*args)
 
 
 def phase_card_vs_cpu(cpu) -> None:
-    card = small_campaign("demo_tlv", "cuda")
+    card = small_campaign("demo_tlv", "cuda", runs=TWIN_RUNS_SMALL)
     want = cpu["demo_tlv"].result()
     check(all(card[i] == want[i] for i in range(4)),
           "64-lane campaign differs between card and cpu")
-    print(f"phase 6: 64-lane 256-run campaign, card == cpu: "
+    print(f"phase 6: 64-lane {TWIN_RUNS_SMALL}-run campaign, card == cpu: "
           f"{len(card[0])} corpus digests, {len(card[1])} crash names, "
           f"equal cov/edge bytes (card {card[5]:.1f} s, cpu {want[5]:.1f} s "
           f"in a worker process)")
@@ -1636,11 +1656,12 @@ def phase_targets_card_vs_cpu(cpu) -> None:
         check(card == want, f"run {name} differs: card {card} cpu {want}")
         print(f"phase 9: run {name}, card == cpu: " + "; ".join(
             f"{k} {res} icount {ic}" for k, res, _, ic in card))
-        card = small_campaign(name, "cuda", 100000)
+        card = small_campaign(name, "cuda", 100000, runs=TWIN_RUNS_SMALL)
         want = cpu[name].result()
         check(all(card[i] == want[i] for i in range(5)),
               f"64-lane {name} campaign differs between card and cpu")
-        print(f"phase 9: 64-lane 256-run {name} campaign, card == cpu: "
+        print(f"phase 9: 64-lane {TWIN_RUNS_SMALL}-run {name} campaign, "
+              f"card == cpu: "
               f"{len(card[0])} corpus digests, crash names {card[1]}, "
               f"statuses {card[4]}, equal cov/edge bytes (card "
               f"{card[5]:.1f} s, cpu {want[5]:.1f} s in a worker process)")
@@ -1726,6 +1747,12 @@ def phase_window_campaign(k1: dict, k2: dict, record: dict) -> tuple:
         "peak_bytes": peak, "statuses": counts,
         "crashes": loop.stats.crashes, "final_line": stats_line(loop)}
     window_out = outcome(loop)
+    # the single-device twin of phase 37's mesh window
+    window_ref = {"fp": batch_fingerprint(loop), "wall_s": wall,
+                  "k1_launches": launches["fused_step"],
+                  "k1_window_rounds": rounds, "windows": windows,
+                  "batches": batches, "incomplete": incomplete,
+                  "window_xla_steps": sweeps}
     backend.restore()
     del loop, backend
     torch.cuda.empty_cache()
@@ -1766,7 +1793,7 @@ def phase_window_campaign(k1: dict, k2: dict, record: dict) -> tuple:
     record["window_campaign"]["megachunk0_spans"] = spans0
     profiled_rerun("phase 10", WCAMPAIGN, record["window_campaign"],
                    launches["fused_step"], wall)
-    return window_out, batch_ref
+    return window_out, batch_ref, window_ref
 
 
 def phase_window_card_vs_cpu(cpu) -> tuple:
@@ -1987,6 +2014,10 @@ def phase_dd_window_campaign(k1: dict, k2: dict, record: dict,
         "batches": batches, "host_decodes": decodes, "occupancy": occupancy,
         "spans": span_s, "bytes_in_use": in_use, "peak_bytes": peak,
         "statuses": counts}
+    # the single-device twin of phase 38's mesh window
+    dd_ref = {"fp": batch_fingerprint(loop),
+              "entries": entries_digest(backend.runner), "wall_s": wall,
+              "counters": c, "k1_launches": launches["fused_step"]}
     backend.restore()
     del loop, backend
     torch.cuda.empty_cache()
@@ -2010,6 +2041,16 @@ def phase_dd_window_campaign(k1: dict, k2: dict, record: dict,
     record["dd_window_campaign"]["turns_wall_s"] = walls
     profiled_rerun("phase 13", DCAMPAIGN, record["dd_window_campaign"],
                    launches["fused_step"], wall)
+    return dd_ref
+
+
+def entries_digest(runner) -> str:
+    """The decode cache's entries in slot order (coverage bit i is entry
+    i), as one digest."""
+    from wtf_tpu_torch.utils.hashing import hex_digest
+
+    return hex_digest(repr(list(
+        runner.cache.checkpoint_entries())).encode())
 
 
 def phase_dd_card_vs_cpu(cpu, card_window: tuple) -> None:
@@ -2416,12 +2457,14 @@ def spin_loop(device: str, lanes: int = SPIN_LANES, limit: int = SPIN_LIMIT):
 
 
 def phase_spin(k1: dict, k2: dict, record: dict) -> None:
-    """bench.py's deep workload: a warm-up batch, with K1 rounds
-    SPIN_WINDOW of it traced by torch.profiler, then unprofiled batches
-    for SPIN_SECONDS.  A profiled batch runs ~3x slower than a plain one,
-    so only that window is traced; the host share is 1 - the card's busy
-    time in the traced window / the wall of the same rounds of the first
-    timed batch (host clock before each K1 launch)."""
+    """bench.py's deep workload: one batch, K1 rounds SPIN_WINDOW of it
+    traced by torch.profiler (a profiled round runs slower, so only that
+    window is traced).  The host share is 1 - the card's busy time in
+    the traced rounds / the unprofiled wall of as many rounds right
+    before them (host clock before each K1 launch: the rounds after
+    them are where lanes start to finish, each with its own precise
+    legs); execs/s and the spans leave out the seconds spent reading the
+    trace."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -2454,48 +2497,38 @@ def phase_spin(k1: dict, k2: dict, record: dict) -> None:
                      on_trace_ready=on_trace) as prof:
             hook["prof"] = prof
             t0 = time.perf_counter()
-            loop.run_one_batch()                # warm-up: decode, trace
-            torch.cuda.synchronize()
-            warm = time.perf_counter() - t0
-            hook["prof"] = None
-        k1_warm = pstep.LAUNCHES["fused_step"]
-        traced_wall = stamps[hi] - stamps[lo]
-        stamps.clear()
-        before = {"i": backend.stats["instructions"],
-                  "c": loop.stats.testcases, "t": loop.stats.timeouts,
-                  "b": backend.stats["batches"],
-                  "spans": {p: reg.spans.seconds(p) for p in SPANS}}
-        t0 = time.perf_counter()
-        while time.perf_counter() - t0 < SPIN_SECONDS:
             loop.run_one_batch()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            batch_s = time.perf_counter() - t0
+            hook["prof"] = None
     finally:
         pstep.fused_step = launch
     launches = dict(pstep.LAUNCHES)
-    timed_k1 = launches["fused_step"] - k1_warm
     check("busy" in traced, f"the profiler traced no window of K1 rounds "
-                            f"{lo}-{hi} in the warm-up batch")
-    check(len(stamps) > hi, f"the first timed batch made {len(stamps)} K1 "
-                            f"launches, fewer than {hi}")
+                            f"{lo}-{hi}")
+    before = 2 * lo - hi
+    check(before >= 0 and len(stamps) > hi,
+          f"the batch made {len(stamps)} K1 launches, fewer than {hi}")
     k1_n, k1_s = (sum(v[i] for n, v in traced["kernels"].items()
                       if "fused_step_kernel" in n) for i in (0, 1))
     check(k1_n > 0, "the traced window holds no K1 launch")
-    window_wall = stamps[hi] - stamps[lo]
-    execs = loop.stats.testcases - before["c"]
-    batches = backend.stats["batches"] - before["b"]
-    instr = backend.stats["instructions"] - before["i"]
-    spans = {p: reg.spans.seconds(p) - before["spans"][p] for p in SPANS}
+    traced_wall = stamps[hi] - stamps[lo]
+    window_wall = stamps[lo] - stamps[before]
+    wall = batch_s - traced["read_s"]
+    execs = loop.stats.testcases
+    batches = backend.stats["batches"]
+    instr = backend.stats["instructions"]
+    spans = {p: reg.spans.seconds(p) for p in SPANS}
+    for p in ("execute", "execute/fused-step"):
+        spans[p] -= traced["read_s"]   # on_trace runs inside a K1 launch
     rec = target_record("demo_spin", loop, wall, launches)
-    rec.update({"warmup_s": warm, "testcases": execs, "batches": batches,
+    rec.update({"testcases": execs, "batches": batches,
                 "instructions": instr, "spans": spans,
                 "execs_per_s": execs / wall, "instr_per_s": instr / wall,
-                "timeout_frac": (loop.stats.timeouts - before["t"])
-                / max(execs, 1),
+                "timeout_frac": loop.stats.timeouts / max(execs, 1),
                 "k1_share": spans["execute/fused-step"] / wall,
                 "resume_share": spans["execute/device-step"] / wall,
-                "k1_launches_timed": timed_k1,
-                "rounds_per_s": timed_k1 / wall,
+                "rounds_per_s": launches["fused_step"] / wall,
                 "window_rounds": (lo, hi), "window_wall_s": window_wall,
                 "window_wall_traced_s": traced_wall,
                 "trace_read_s": traced["read_s"],
@@ -2509,21 +2542,18 @@ def phase_spin(k1: dict, k2: dict, record: dict) -> None:
                                                backend.n_lanes))
     k1["max_abs_err"] = max(k1["max_abs_err"] or 0, err)
     print(f"phase 18: demo_spin deep (bench's chip workload at limit "
-          f"{SPIN_LIMIT}, {SPIN_LANES} lanes; warm-up batch {warm:.2f} s "
-          f"with K1 rounds {lo}-{hi} traced: {traced_wall:.2f} s, and "
-          f"{traced['read_s']:.2f} s to read the trace): {batches} batches, "
-          f"{execs} "
-          f"testcases in {wall:.2f} s = {rec['execs_per_s']:.1f} execs/s, "
-          f"{rec['instr_per_s']:.4g} instructions/s; timeout fraction "
-          f"{rec['timeout_frac']:.3f}; K1 launches {launches['fused_step']} "
-          f"({timed_k1} after the warm-up = {timed_k1 / batches:.0f} per "
-          f"batch, {rec['rounds_per_s']:.0f} per s), "
-          f"{rec['k1_ms_mean_trace']:.4f} ms mean (profiler, {k1_n} in the "
-          f"window); K1 share of the wall {rec['k1_share']:.3f}, resume "
-          f"legs {rec['resume_share']:.3f}; the window's rounds took "
+          f"{SPIN_LIMIT}, {SPIN_LANES} lanes, one batch; K1 rounds {lo}-{hi} "
+          f"traced: {traced_wall:.2f} s, and {traced['read_s']:.2f} s to read "
+          f"the trace, left out): {execs} testcases in {wall:.2f} s = "
+          f"{rec['execs_per_s']:.1f} execs/s, {rec['instr_per_s']:.4g} "
+          f"instructions/s; timeout fraction {rec['timeout_frac']:.3f}; K1 "
+          f"launches {launches['fused_step']} ({rec['rounds_per_s']:.0f} per "
+          f"s), {rec['k1_ms_mean_trace']:.4f} ms mean (profiler, {k1_n} in "
+          f"the window); K1 share of the wall {rec['k1_share']:.3f}, resume "
+          f"legs {rec['resume_share']:.3f}; rounds {before}-{lo} took "
           f"{window_wall:.2f} s unprofiled, card busy {traced['busy']:.3f} s "
-          f"= host share {rec['host_share']:.3f}; fused occupancy "
-          f"{rec['occupancy']:.4f}; breakpoint services "
+          f"in the traced ones = host share {rec['host_share']:.3f}; fused "
+          f"occupancy {rec['occupancy']:.4f}; breakpoint services "
           f"{rec['bp_dispatches']}; K1 == plain on a batch start over 2 "
           f"dispatches (retired {retired}); spans "
           + ", ".join(f"{k} {v:.2f}" for k, v in spans.items()))
@@ -2537,11 +2567,13 @@ def phase_spin(k1: dict, k2: dict, record: dict) -> None:
 def phase_new_targets_card_vs_cpu(cpu) -> None:
     for name in NEW_TARGETS + ("demo_spin",):
         limit = SPIN_SMALL_LIMIT if name == "demo_spin" else 100000
-        card = small_campaign(name, "cuda", limit, seeded=True)
+        card = small_campaign(name, "cuda", limit, seeded=True,
+                              runs=TWIN_RUNS_SMALL)
         want = cpu[name].result()
         check(all(card[i] == want[i] for i in range(5)),
               f"64-lane {name} campaign differs between card and cpu")
-        print(f"phase 17: 64-lane 256-run {name} campaign, card == cpu: "
+        print(f"phase 17: 64-lane {TWIN_RUNS_SMALL}-run {name} campaign, "
+              f"card == cpu: "
               f"{len(card[0])} corpus digests, crash names {card[1][:4]}, "
               f"statuses {card[4]}, equal cov/edge bytes (card "
               f"{card[5]:.1f} s, cpu {want[5]:.1f} s in a worker process)")
@@ -2655,33 +2687,12 @@ def rung_history(log: EventLog) -> list:
             if kind in ("degrade", "promote")]
 
 
-def timed_campaign(argv: list) -> tuple:
-    """(outcome, wall) of the 16384-run campaign `argv` writing a fresh
-    target dir; the wall runs from the campaign's build to the card's
-    last work, as phase 21's own run."""
-    import torch
-
-    from wtf_tpu_torch import cli
-
-    with tempfile.TemporaryDirectory() as tmp:
-        a = cli.build_parser().parse_args(
-            argv + ["--target", str(Path(tmp) / "t")])
-        t0 = time.perf_counter()
-        loop = cli.build_campaign(a)
-        loop.fuzz(runs=RUNS)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        out = outcome(loop)
-    del loop
-    torch.cuda.empty_cache()
-    return out, wall
-
-
 def phase_supervised(k1: dict, k2: dict, record: dict,
                      window_out: tuple, keep: Path) -> tuple:
     """Phase 21: phase 10's window campaign supervised, with a watchdog
-    and a checkpoint after every batch: equal to phase 10's; then its
-    cost in parts, in turns.  Its outputs/ and crashes/ are copied into
+    and a checkpoint after every batch: equal to phase 10's, with the
+    supervisor's and the checkpoints' shares of its wall.  Its outputs/
+    and crashes/ are copied into
     `keep` (the corpus phases 24-26 triage).  Returns (final line,
     outputs/ digests) for phase 23."""
     import shutil
@@ -2770,30 +2781,6 @@ def phase_supervised(k1: dict, k2: dict, record: dict,
     del loop
     torch.cuda.empty_cache()
 
-    # the cost in parts, in turns T S after the run above (C): T is phase 10's campaign writing outputs/ and crashes/
-    # into a target dir, S adds the supervisor (watchdog, integrity,
-    # snapshot), C adds a checkpoint after every batch
-    argvs = {"T": WCAMPAIGN, "S": WCAMPAIGN + SUPERVISE, "C": SCAMPAIGN}
-    walls = {"T": [], "S": [], "C": [wall]}
-    for key in "TS":
-        got, seconds = timed_campaign(argvs[key])
-        check(got[:4] == window_out[:4],
-              f"phase 21's {key} run differs from phase 10's")
-        walls[key].append(seconds)
-    mean = {k: sum(v) / len(v) for k, v in walls.items()}
-    p10 = record["window_campaign"]["turns_wall_s"]["8"]
-    parts = {"target dir": mean["T"] - sum(p10) / len(p10),
-             "supervisor": mean["S"] - mean["T"],
-             "checkpoints": mean["C"] - mean["S"]}
-    print(f"phase 21: in turns (C, T, S), equal results: walls "
-          f"T (phase 10 + --target) {walls['T']}, S (+ {' '.join(SUPERVISE)}"
-          f") {walls['S']}, C (+ --checkpoint-every 1) {walls['C']}; "
-          f"phase 10's {p10}; mean differences: "
-          + ", ".join(f"{k} {v:+.4f} s ({v / mean['C']:+.4f} of C)"
-                      for k, v in parts.items())
-          + f"; checkpoint span of the first C "
-            f"{spans.seconds('checkpoint'):.4f} s")
-    record["supervised"].update(turns_wall_s=walls, parts_s=parts)
     return line, tree
 
 
@@ -2937,11 +2924,16 @@ def phase_kill_resume(record: dict, supervised: tuple) -> None:
                              "fell_back": fell_back}
 
 
-def small_tier(device: str) -> dict:
+TIER_PARTS = ("supervised", "faults", "quarantine", "resumed")
+
+
+def small_tier(device: str, parts: tuple = TIER_PARTS) -> dict:
     """The CPU twins of phases 21-23 (and their card sides), at 64 lanes
     and 256 runs: the supervised window campaign, the faulted one, the
     quarantine one, and the window campaign killed at batch 2 and
-    resumed in a fresh loop.  Returns {name: outcome[:4]}."""
+    resumed in a fresh loop (those of them named in `parts`: the CPU
+    side runs each in a worker of its own).  Returns {name:
+    outcome[:4]}."""
     from wtf_tpu_torch import cli
     from wtf_tpu_torch.resume import load_campaign, restore_campaign
     from wtf_tpu_torch.testing.faultinject import fuzz_until_killed
@@ -2952,16 +2944,22 @@ def small_tier(device: str) -> dict:
             *SUPERVISE]
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        ck = Path(tmp) / "ck"
-        a = cli.build_parser().parse_args(
-            base + ["--checkpoint-every", "1", "--checkpoint-dir", str(ck)])
-        out["supervised"] = outcome(cli.campaign(a))[:4]
+        if "supervised" in parts:
+            ck = Path(tmp) / "ck"
+            a = cli.build_parser().parse_args(
+                base + ["--checkpoint-every", "1", "--checkpoint-dir",
+                        str(ck)])
+            out["supervised"] = outcome(cli.campaign(a))[:4]
         for name, plan in (("faults", fault_plan(7)),
                            ("quarantine", quarantine_plan())):
+            if name not in parts:
+                continue
             loop, _, _ = faulted_campaign(base, plan)
             out[name] = outcome(loop)[:4] + (
                 [f[:2] for f in plan.fired], sorted(
                     loop.backend.supervisor.quarantined))
+        if "resumed" not in parts:
+            return out
         ck2 = Path(tmp) / "ck2"
         victim = cli.build_campaign(cli.build_parser().parse_args(
             base + ["--checkpoint-every", "1", "--checkpoint-dir",
@@ -2984,7 +2982,9 @@ def phase_tier_card_vs_cpu(cpu, card_window: tuple) -> None:
     t0 = time.perf_counter()
     card = small_tier("cuda")
     card_s = time.perf_counter() - t0
-    want = cpu["fault tolerance"].result()
+    want = {}
+    for part in TIER_PARTS:
+        want.update(cpu[f"fault tolerance {part}"].result())
     for name in ("supervised", "faults", "resumed", "quarantine"):
         check(card[name] == want[name],
               f"64-lane {name} campaign differs between card and cpu")
@@ -4399,46 +4399,8 @@ def phase_mesh_campaign(k1: dict, k2: dict, record: dict,
     k1["launches_by_path"]["demo_tlv mesh x4"] = launches["fused_step"]
     k2["launches_by_path"]["demo_tlv mesh x4"] = launches["probe"]
 
-    # K1 per shard against its plain version on the next devmangle batch
-    # of the stream, from its start (comparisons: the counts are put back)
-    runner = backend.runner
-    counts = dict(pstep.LAUNCHES)
-    loop.target.restore()
-    backend.restore()
-    words, lens = loop.mutator.take_batch()
-    spec = loop.mutator.spec
-    runner.device_insert(words, lens, loop.mutator.pfns, spec.gva,
-                         spec.len_gpr, spec.ptr_gpr)
-    tab = runner.device_tab()
-    err = 0
-    for s, shard in enumerate(runner.shards):
-        m0 = shard.clone()
-        mk, mp = m0.clone(), m0.clone()
-        with runner.mesh.scope(s):
-            pstep.fused_step(tab[shard.device], runner.images[s], mk,
-                             runner.limit, runner.fused_k)
-        pstep.fused_step_plain(tab[shard.device], runner.images[s], mp,
-                               runner.limit, runner.fused_k)
-        bad, e = plane_diff(mk, mp)
-        check(not bad, f"phase 33: K1 differs from its plain version on "
-                       f"shard {s}: {bad}")
-        err = max(err, e)
-    k1["max_abs_err"] = max(k1["max_abs_err"] or 0, err)
-    first = runner.shards[0]
-    m0, work = first.clone(), {}
-
-    def fresh():
-        work["m"] = m0.clone()
-
-    ms = cuda_ms(lambda: pstep.fused_step(
-        tab[first.device], runner.images[0], work["m"], runner.limit,
-        runner.fused_k), 10, setup=fresh)
-    mk = m0.clone()
-    pstep.fused_step(tab[first.device], runner.images[0], mk, runner.limit,
-                     runner.fused_k)
-    bound_ms, by, detail = k1_bound(m0, mk, runner, tab[first.device])
-    torch.cuda.synchronize()
-    pstep.LAUNCHES.update(counts)
+    ms, bound_ms, by, detail = shard_k1(loop, "phase 33", k1)
+    runner, first = backend.runner, backend.runner.shards[0]
     k1["mesh_shard_ms"], k1["mesh_shard_bound_ms"] = ms, bound_ms
     ref_wall = batch_ref["wall_s"]
     print(f"phase 33: {MESH_SHARDS}-shard mesh of cuda:0, devmangle batch "
@@ -4467,8 +4429,60 @@ def phase_mesh_campaign(k1: dict, k2: dict, record: dict,
         "k1_shard_ms": ms, "k1_shard_bound_ms": bound_ms,
         "k1_shard_bound_by": by, "final_line": got["line"]}
     backend.restore()
-    del loop, backend, runner, tab, m0, mk, first
+    del loop, backend, runner, first
     torch.cuda.empty_cache()
+
+
+def shard_k1(loop, phase: str, k1: dict) -> tuple:
+    """K1 on each shard of a mesh campaign's runner against its plain
+    version on the next devmangle batch of the stream, from its start,
+    then K1's ms per dispatch on shard 0 and its bound (the launch
+    counts are put back: comparisons do not count).  Returns (ms,
+    bound_ms, bound_by, detail)."""
+    import torch
+
+    from wtf_tpu_torch.interp import pstep
+
+    backend = loop.backend
+    runner = backend.runner
+    counts = dict(pstep.LAUNCHES)
+    loop.target.restore()
+    backend.restore()
+    words, lens = loop.mutator.take_batch()
+    spec = loop.mutator.spec
+    runner.device_insert(words, lens, loop.mutator.pfns, spec.gva,
+                         spec.len_gpr, spec.ptr_gpr)
+    tab = runner.device_tab()
+    err = 0
+    for s, shard in enumerate(runner.shards):
+        m0 = shard.clone()
+        mk, mp = m0.clone(), m0.clone()
+        with runner.mesh.scope(s):
+            pstep.fused_step(tab[shard.device], runner.images[s], mk,
+                             runner.limit, runner.fused_k)
+        pstep.fused_step_plain(tab[shard.device], runner.images[s], mp,
+                               runner.limit, runner.fused_k)
+        bad, e = plane_diff(mk, mp)
+        check(not bad, f"{phase}: K1 differs from its plain version on "
+                       f"shard {s}: {bad}")
+        err = max(err, e)
+    k1["max_abs_err"] = max(k1["max_abs_err"] or 0, err)
+    first = runner.shards[0]
+    m0, work = first.clone(), {}
+
+    def fresh():
+        work["m"] = m0.clone()
+
+    ms = cuda_ms(lambda: pstep.fused_step(
+        tab[first.device], runner.images[0], work["m"], runner.limit,
+        runner.fused_k), 10, setup=fresh)
+    mk = m0.clone()
+    pstep.fused_step(tab[first.device], runner.images[0], mk, runner.limit,
+                     runner.fused_k)
+    bound_ms, by, detail = k1_bound(m0, mk, runner, tab[first.device])
+    torch.cuda.synchronize()
+    pstep.LAUNCHES.update(counts)
+    return ms, bound_ms, by, detail
 
 
 def phase_mesh_cli(record: dict) -> None:
@@ -4613,45 +4627,269 @@ def phase_mesh_card_vs_cpu(cpu) -> None:
           f"{want['wall_s']:.1f} s in a worker process)")
 
 
+# ---------------------------------------------------------------------------
+# phases 37-39: the mesh window
+# ---------------------------------------------------------------------------
+
+WINDOW_COUNTERS = ("megachunk.windows", "megachunk.incomplete_windows",
+                   "device.fused_window_rounds",
+                   "device.fused_window_xla_steps", "devdec.serviced_lanes",
+                   "devdec.published", "devdec.parked_lanes",
+                   "devdec.service_rounds", "devdec.service_k1_rounds",
+                   "devdec.crosscheck_mismatches",
+                   "devdec.zero_host_windows", "devdec.zero_host_batches")
+MESH_WINDOW_TWIN_RUNS = 128
+
+
+def mesh_window_campaign(phase: str, argv: list, ref: dict, k1: dict,
+                         k2: dict) -> dict:
+    """`argv`'s window campaign on a 4-shard mesh of cuda:0, counts
+    zeroed just before and read just after, held bit for bit against its
+    single-device run `ref` (line, corpus, crashes, cov/edge bytes,
+    statuses, the last devmut batch, ctr totals, and the decode cache's
+    entries where `ref` has them); K1's launches per shard must sum to
+    the phase's launches.  Returns (loop, record)."""
+    import torch
+
+    from wtf_tpu_torch.interp import pstep
+
+    torch.cuda.reset_peak_memory_stats()
+    for name in pstep.LAUNCHES:
+        pstep.LAUNCHES[name] = 0
+    loop, wall = mesh_campaign(argv, "cuda", MESH_SHARDS)
+    launches = dict(pstep.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    backend, reg = loop.backend, loop.registry
+    got = batch_fingerprint(loop)
+    bad = [k for k in ref["fp"] if got[k] != ref["fp"][k]]
+    if "entries" in ref and entries_digest(backend.runner) != ref["entries"]:
+        bad.append("decode-cache entries")
+    check(not bad, f"{phase}: the {MESH_SHARDS}-shard mesh window campaign "
+                   f"differs from the single-device window in {bad}")
+    per_shard = reg.counter("device.shard_fused_dispatches").dump()
+    check(launches["fused_step"] > 0 and len(per_shard) == MESH_SHARDS
+          and sum(per_shard.values()) == launches["fused_step"],
+          f"{phase}: K1 launches {launches} against per-shard dispatches "
+          f"{per_shard}")
+    check(launches["probe"] == 1, f"{phase}: K2 launches {launches}")
+    c = {n: reg.counter(n).value for n in WINDOW_COUNTERS}
+    check(c["megachunk.windows"] > 0 and c["device.fused_window_rounds"] > 0,
+          f"{phase}: no window launched K1: {c}")
+    check(c["devdec.crosscheck_mismatches"] == 0,
+          f"{phase}: {c['devdec.crosscheck_mismatches']} device-published "
+          f"entries disagree with the host decoder")
+    spans = reg.spans
+    span_s = {p: spans.seconds(p) for p in (
+        "execute", "execute/device", "execute/device/overlay-restore",
+        "execute/device/generate", "execute/device/insert",
+        "execute/device/fused-step", "execute/device/device-step",
+        "execute/device/devdec-service", "execute/device/merge",
+        "execute/fused-step", "execute/device-step")}
+    legs = (span_s["execute/device/device-step"]
+            + span_s["execute/device-step"])
+    k1_s = span_s["execute/device/fused-step"] + span_s["execute/fused-step"]
+    batches = backend.stats["batches"]
+    rounds = c["device.fused_window_rounds"]
+    tag = phase.replace("phase", "demo_tlv mesh x4 window, phase")
+    k1["launches"] += launches["fused_step"]
+    k2["launches"] += launches["probe"]
+    k1["launches_by_path"][tag] = launches["fused_step"]
+    k2["launches_by_path"][tag] = launches["probe"]
+    rec = {"shards": MESH_SHARDS, "testcases": loop.stats.testcases,
+           "wall_s": wall, "execs_per_s": loop.stats.testcases / wall,
+           "single_device_wall_s": ref["wall_s"],
+           "single_device_execs_per_s": RUNS / ref["wall_s"],
+           "k1_launches": launches["fused_step"], "k1_per_shard": per_shard,
+           "single_device_k1_launches": ref["k1_launches"],
+           "k2_launches": launches["probe"], "counters": c,
+           "batches": batches, "batches_per_window":
+               batches / c["megachunk.windows"],
+           "k1_window_ms_per_launch": (span_s["execute/device/fused-step"]
+                                       / max(rounds, 1) * 1e3),
+           "legs_s": legs, "legs_share": legs / wall, "k1_s": k1_s,
+           "spans": span_s, "peak_bytes": peak, "final_line": got["line"]}
+    return loop, rec
+
+
+def phase_mesh_window(k1: dict, k2: dict, record: dict, window_ref: dict,
+                      dd_ref: dict) -> None:
+    """Phases 37 and 38: phase 10's window campaign (`--megachunk 8
+    --fused-step on`) and phase 13's (`--device-decode`) on a 4-shard
+    mesh of cuda:0, each equal to its single-device run; K1 per shard
+    against its plain version on a batch start of phase 37's runner and
+    its time at the shard's 1024 lanes."""
+    import torch
+
+    loop, rec = mesh_window_campaign("phase 37", WCAMPAIGN, window_ref, k1,
+                                     k2)
+    ms, bound_ms, by, detail = shard_k1(loop, "phase 37", k1)
+    rec.update(k1_shard_ms=ms, k1_shard_bound_ms=bound_ms,
+               k1_shard_bound_by=by)
+    k1["mesh_window_shard_ms"] = ms
+    c = rec["counters"]
+    print(f"phase 37: {MESH_SHARDS}-shard mesh of cuda:0, devmangle window "
+          f"(--megachunk 8): {rec['testcases']} testcases in "
+          f"{rec['wall_s']:.2f} s = {rec['execs_per_s']:.1f} execs/s (one "
+          f"device, phase 10: {rec['single_device_execs_per_s']:.1f}); "
+          f"equal to phase 10's window (line, corpus, crashes, cov/edge "
+          f"bytes, statuses, the last devmut batch, ctr totals); "
+          f"{c['megachunk.windows']} windows "
+          f"({c['megachunk.incomplete_windows']} incomplete; phase 10: "
+          f"{window_ref['windows']}, "
+          f"{window_ref['incomplete']}), {rec['batches_per_window']:.2f} "
+          f"batches per window; K1 launches {rec['k1_launches']} per shard "
+          f"{rec['k1_per_shard']}, {c['device.fused_window_rounds']} in "
+          f"windows (one device: {window_ref['k1_launches']}, "
+          f"{window_ref['k1_window_rounds']} in windows), K2 "
+          f"{rec['k2_launches']}; window precise sweeps "
+          f"{c['device.fused_window_xla_steps']} (one device "
+          f"{window_ref['window_xla_steps']}); in-window K1 "
+          f"{rec['k1_window_ms_per_launch']:.3f} ms per launch (host clock, "
+          f"fenced); legs {rec['legs_s']:.2f} s = {rec['legs_share']:.3f} of "
+          f"the wall, K1 {rec['k1_s']:.2f} s; device peak "
+          f"{rec['peak_bytes']}")
+    print(f"phase 37: K1 on each shard == its plain version on a devmangle "
+          f"batch start; on shard 0 ({LANES // MESH_SHARDS} lanes) "
+          f"{ms:.3f} ms per dispatch, bound {bound_ms:.5f} ms ({detail})")
+    record["mesh_window"] = rec
+    loop.backend.restore()
+    del loop
+    torch.cuda.empty_cache()
+
+    loop, rec = mesh_window_campaign("phase 38", DCAMPAIGN, dd_ref, k1, k2)
+    c, one = rec["counters"], dd_ref["counters"]
+    print(f"phase 38: {MESH_SHARDS}-shard mesh of cuda:0, --device-decode "
+          f"window: {rec['testcases']} testcases in {rec['wall_s']:.2f} s = "
+          f"{rec['execs_per_s']:.1f} execs/s (one device, phase 13: "
+          f"{rec['single_device_execs_per_s']:.1f}); equal to phase 13 "
+          f"(line, corpus, crashes, cov/edge bytes, statuses, the last "
+          f"devmut batch, ctr totals, the decode cache's entries in slot "
+          f"order), cross-check mismatches "
+          f"{c['devdec.crosscheck_mismatches']}; service rounds "
+          f"{c['devdec.service_rounds']} (one device "
+          f"{one['devdec.service_rounds']}) in "
+          f"{rec['spans']['execute/device/devdec-service']:.3f} s, "
+          f"published {c['devdec.published']} (one device "
+          f"{one['devdec.published']}), zero-host windows "
+          f"{c['devdec.zero_host_windows']} of {c['megachunk.windows']}; K1 "
+          f"launches {rec['k1_launches']} per shard {rec['k1_per_shard']} "
+          f"({c['devdec.service_k1_rounds']} in service re-quiesces; one "
+          f"device {dd_ref['k1_launches']}), K2 {rec['k2_launches']}; legs "
+          f"{rec['legs_s']:.2f} s = {rec['legs_share']:.3f} of the wall; "
+          f"device peak {rec['peak_bytes']}")
+    record["mesh_dd_window"] = rec
+    loop.backend.restore()
+    del loop
+    torch.cuda.empty_cache()
+
+
+def mesh_window_twin(device: str) -> dict:
+    """Phase 39: the --device-decode window campaign at 64 lanes x 4
+    shards of `device`, MESH_WINDOW_TWIN_RUNS testcases."""
+    argv = ["campaign", "--name", "demo_tlv", "--fused-step", "on",
+            *WINDOW, "--device-decode", "--lanes", str(TWIN_LANES),
+            "--runs", str(MESH_WINDOW_TWIN_RUNS), "--limit", "20000",
+            "--max_len", "96", "--seed", "5"]
+    loop, wall = mesh_campaign(argv, device, MESH_SHARDS)
+    fp = batch_fingerprint(loop)
+    fp["entries"] = entries_digest(loop.backend.runner)
+    fp["windows"] = loop.registry.counter("megachunk.windows").value
+    fp["wall_s"] = wall
+    return fp
+
+
+def phase_mesh_window_card_vs_cpu(cpu) -> None:
+    """Phase 39: the mesh window twin, 64 lanes x 4 shards with device
+    decode: card == cpu."""
+    got = mesh_window_twin("cuda")
+    want = cpu["mesh window"].result()
+    bad = [k for k in ("line", "outcome", "devmut", "ctr", "entries",
+                       "windows") if got[k] != want[k]]
+    check(not bad, f"phase 39: the {MESH_SHARDS}-shard device-decode window "
+                   f"twin differs between card and cpu in {bad}")
+    check(got["windows"] > 0, "phase 39: no window ran")
+    print(f"phase 39: {TWIN_LANES}-lane x {MESH_SHARDS}-shard "
+          f"--device-decode window campaign ({MESH_WINDOW_TWIN_RUNS} runs, "
+          f"{got['windows']} windows) card == cpu, decode-cache entries "
+          f"included: {got['line']} (card {got['wall_s']:.1f} s, cpu "
+          f"{want['wall_s']:.1f} s in a worker process)")
+
+
 def start_cpu_references(pool, keep: Path, vbreak_input: bytes) -> dict:
-    """The CPU sides of phases 6, 9, 11, 14, 17, 20, 21-23, 24-26, 28, 32
-    and 36, started together in worker processes once the card's timed
-    phases are done."""
+    """The CPU sides of phases 6, 9, 11, 14, 17, 20, 21-23, 24-26, 28, 32,
+    36 and 39, started together in worker processes once the card's
+    timed phases are done."""
     import os
 
-    # the node twins first: each also waits on a master subprocess, and
-    # they are the longest of the jobs
-    jobs = {"sched": (sched_twin, "cpu"),
-            "mesh": (mesh_twin, "cpu"),
+    # the longest first (the pool takes them in order): the
+    # fault-tolerance parts, triage, the FP loop, the node twins (each
+    # also waits on a master subprocess)
+    jobs = {**{f"fault tolerance {part}": (small_tier, "cpu", (part,))
+               for part in TIER_PARTS},
+            "triage crasher": (triage_twin, "cpu", "crasher", keep,
+                               vbreak_input),
+            "triage corpus": (triage_twin, "cpu", "corpus", keep,
+                              vbreak_input),
+            "fp loop": (fp_loop_cpu,),
             "node delta=True": (node_twin, "cpu", True),
             "node delta=False": (node_twin, "cpu", False),
-            "demo_tlv": (small_campaign, "demo_tlv", "cpu"),
+            "run demo_kernel": (replay_runs, "demo_kernel", KERNEL_RUNS,
+                                "cpu"),
+            "sched": (sched_twin, "cpu"),
+            "mesh": (mesh_twin, "cpu"),
+            "mesh window": (mesh_window_twin, "cpu"),
+            "demo_tlv": (small_campaign, "demo_tlv", "cpu", 20000, (),
+                         False, TWIN_RUNS_SMALL),
             "demo_tlv window": (small_campaign, "demo_tlv", "cpu", 20000,
                                 tuple(WINDOW)),
             "demo_tlv window dd": (small_campaign, "demo_tlv", "cpu", 20000,
                                    tuple(WINDOW) + ("--device-decode",)),
-            "demo_kernel": (small_campaign, "demo_kernel", "cpu", 100000),
+            "demo_kernel": (small_campaign, "demo_kernel", "cpu", 100000,
+                            (), False, TWIN_RUNS_SMALL),
             "demo_usermode": (small_campaign, "demo_usermode", "cpu",
-                              100000),
-            "run demo_kernel": (replay_runs, "demo_kernel", KERNEL_RUNS,
-                                "cpu"),
+                              100000, (), False, TWIN_RUNS_SMALL),
             "run demo_usermode": (replay_runs, "demo_usermode", USER_RUNS,
                                   "cpu"),
             "demo_spin": (small_campaign, "demo_spin", "cpu",
-                          SPIN_SMALL_LIMIT, (), True),
-            "fp loop": (fp_loop_cpu,),
-            "fault tolerance": (small_tier, "cpu"),
-            "triage corpus": (triage_twin, "cpu", "corpus", keep,
-                              vbreak_input),
-            "triage crasher": (triage_twin, "cpu", "crasher", keep,
-                               vbreak_input)}
+                          SPIN_SMALL_LIMIT, (), True, TWIN_RUNS_SMALL)}
     if pe_available():
         jobs = {"pe": (pe_twin, "cpu"), **jobs}
     for name in NEW_TARGETS:
-        jobs[name] = (small_campaign, name, "cpu", 100000, (), True)
+        jobs[name] = (small_campaign, name, "cpu", 100000, (), True,
+                      TWIN_RUNS_SMALL)
     threads = max(1, (os.cpu_count() or 1) // len(jobs))
-    return {key: pool.submit(cpu_job, job[0], threads, *job[1:])
-            for key, job in jobs.items()}
+    t0 = time.perf_counter()
+    futures = {}
+    for key, job in jobs.items():
+        futures[key] = pool.submit(cpu_job, job[0], threads, *job[1:])
+        futures[key].add_done_callback(
+            lambda _f, key=key: CPU_DONE_S.__setitem__(
+                key, round(time.perf_counter() - t0, 1)))
+    return futures
+
+
+# seconds from the CPU pool's start at which each twin's CPU side ended
+CPU_DONE_S: dict = {}
+
+
+def run_twins(cpu: dict, twins: list, got: dict) -> None:
+    """Run each twin's card side and comparison once its CPU sides (the
+    futures named by its keys) have ended and the results it takes from
+    another twin (`got`'s keys) are there, the first such in list order,
+    so the card sides run while the workers still compute the rest."""
+    from concurrent.futures import FIRST_COMPLETED, wait
+
+    pending = list(twins)
+    while pending:
+        ready = [t for t in pending
+                 if all(cpu[k].done() for k in t[0])
+                 and all(k in got for k in t[1])]
+        if not ready:
+            wait([cpu[k] for t in pending for k in t[0]
+                  if not cpu[k].done()], return_when=FIRST_COMPLETED)
+            continue
+        pending.remove(ready[0])
+        ready[0][2]()
 
 
 def main(argv=None) -> int:
@@ -4701,10 +4939,11 @@ def main(argv=None) -> int:
     stamp("7")
     kernel_out = phase_kernel_campaign(k1, k2, record)
     stamp("8")
-    window_out, batch_ref = phase_window_campaign(k1, k2, record)
+    window_out, batch_ref, window_ref = phase_window_campaign(k1, k2,
+                                                              record)
     stamp("10")
     phase_decode(dev, record)
-    phase_dd_window_campaign(k1, k2, record, window_out)
+    dd_ref = phase_dd_window_campaign(k1, k2, record, window_out)
     stamp("12-13")
     phase_dump(k1, k2, record, kernel_out)
     stamp("15")
@@ -4736,27 +4975,47 @@ def main(argv=None) -> int:
     phase_mesh_cli(record)
     phase_mesh_processes(record)
     stamp("33-35")
+    phase_mesh_window(k1, k2, record, window_ref, dd_ref)
+    stamp("37-38")
     # the CPU references of phases 6, 9, 11, 14, 17, 20, 21-23, 24-26, 28,
-    # 32 and 36 run in worker processes, after every timed phase, while
+    # 32, 36 and 39 run in worker processes, after every timed phase, while
     # this process runs their card sides
     with ProcessPoolExecutor(
             max_workers=14, mp_context=multiprocessing.get_context(
                 "spawn")) as pool:
         cpu = start_cpu_references(pool, keep, vbreak_input)
-        phase_card_vs_cpu(cpu)
-        phase_targets_card_vs_cpu(cpu)
-        card_window = phase_window_card_vs_cpu(cpu)
-        phase_dd_card_vs_cpu(cpu, card_window)
-        phase_new_targets_card_vs_cpu(cpu)
-        phase_fp_loop_card_vs_cpu(cpu, fp_card)
-        phase_tier_card_vs_cpu(cpu, card_window)
-        phase_triage_card_vs_cpu(cpu, keep, vbreak_input)
-        phase_node_card_vs_cpu(cpu)
-        phase_tenancy_card_vs_cpu(cpu)
-        phase_mesh_card_vs_cpu(cpu)
+        got = {}
+        run_twins(cpu, [
+            (("demo_tlv",), (), lambda: phase_card_vs_cpu(cpu)),
+            (("run demo_kernel", "demo_kernel", "run demo_usermode",
+              "demo_usermode"), (),
+             lambda: phase_targets_card_vs_cpu(cpu)),
+            (("demo_tlv window",), (), lambda: got.__setitem__(
+                "window", phase_window_card_vs_cpu(cpu))),
+            (("demo_tlv window dd",), ("window",),
+             lambda: phase_dd_card_vs_cpu(cpu, got["window"])),
+            (NEW_TARGETS + ("demo_spin",), (),
+             lambda: phase_new_targets_card_vs_cpu(cpu)),
+            (("fp loop",), (),
+             lambda: phase_fp_loop_card_vs_cpu(cpu, fp_card)),
+            (tuple(f"fault tolerance {p}" for p in TIER_PARTS), ("window",),
+             lambda: phase_tier_card_vs_cpu(cpu, got["window"])),
+            (("triage corpus", "triage crasher"), (),
+             lambda: phase_triage_card_vs_cpu(cpu, keep, vbreak_input)),
+            (("node delta=True", "node delta=False"), (),
+             lambda: phase_node_card_vs_cpu(cpu)),
+            (("sched",) + (("pe",) if "pe" in cpu else ()), (),
+             lambda: phase_tenancy_card_vs_cpu(cpu)),
+            (("mesh",), (), lambda: phase_mesh_card_vs_cpu(cpu)),
+            (("mesh window",), (),
+             lambda: phase_mesh_window_card_vs_cpu(cpu))], got)
     work.cleanup()
     stamp("twins")
     record["elapsed_s"] = elapsed
+    record["twins_cpu_done_s"] = dict(sorted(CPU_DONE_S.items(),
+                                             key=lambda kv: -kv[1]))
+    print(f"chip_smoke: the twins' CPU sides ended (seconds from the pool's "
+          f"start): {record['twins_cpu_done_s']}")
     print(f"chip_smoke: every phase passed in {elapsed['twins']:.1f} s "
           f"(seconds from the start at the end of each group: {elapsed})")
 

@@ -23,9 +23,9 @@ geometry):
     the mesh merge across the processes equal to the JAX merge_coverage;
     `campaign --coordinator` in two processes (2 shards each) is one
     mesh whose campaign equals the JAX CLI's
-  * the flags: --mesh-devices plumbs to MeshBackend; indivisible lanes,
-    the megachunk window and device decode on a mesh, and more cuda
-    shards than cards are refused
+  * the flags: --mesh-devices plumbs to MeshBackend; indivisible lanes
+    and more cuda shards than cards are refused (the mesh window and
+    device decode on a mesh: tests/test_torch_mesh_window*.py)
 
 Every comparison is exact (integer state: tolerance 0).  The port's
 precise step costs the same per shard at any lane count, so a mesh of 8
@@ -519,33 +519,6 @@ def _port_cli(argv):
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         return cli.main(argv), out.getvalue()
-
-
-def test_mesh_refuses_the_window_and_device_decode(tmp_path):
-    """The megachunk window and device decode on a mesh (ROADMAP A13(b))
-    fail at start-up, naming it — in the library and through the CLI —
-    never running batch at a time in silence."""
-    from wtf_tpu_torch.backend import create_backend
-    from wtf_tpu_torch.harness import demo_tlv
-    from wtf_tpu_torch.meshrun import MeshRunner
-
-    with pytest.raises(ValueError, match=r"A13\(b\)"):
-        build_port_tlv_campaign(mesh_devices=2, megachunk=4, **CAMPAIGN)
-    with pytest.raises(ValueError, match=r"A13\(b\)"):
-        create_backend("gpu", demo_tlv.build_snapshot(), n_lanes=8,
-                       mesh_devices=2, device="cpu",
-                       device_decode=True).initialize()
-    with pytest.raises(ValueError, match=r"A13\(b\)"):
-        MeshRunner(demo_tlv.build_snapshot(), 8, mesh=_cpu_mesh(2),
-                   device_decode=True)
-    base = ["campaign", "--name", "demo_tlv", "--mutator", "devmangle",
-            "--lanes", "8", "--runs", "8", "--limit", "20000",
-            "--device", "cpu", "--mesh-devices", "2", "--target",
-            str(tmp_path / "t")]
-    for extra in (["--megachunk", "4"], ["--device-decode"]):
-        with pytest.raises(SystemExit, match=r"A13\(b\)"):
-            _port_cli(base + extra)
-    assert not (tmp_path / "t" / "outputs").exists()
 
 
 def test_cuda_mesh_wider_than_the_cards_raises(monkeypatch):

@@ -484,23 +484,6 @@ def test_restore_tenant_rejects_mismatched_placement(tmp_path):
         restore_tenant(backend2, rt, 0, tmp_path / "alice")
 
 
-def test_mesh_tenancy_raises_until_the_multi_device_item():
-    """The mesh-sharded batch is ported (A13(a): TenancyMeshBackend; its
-    parity is tests/test_torch_mesh_paths.py's); what still raises is
-    the rest of the multi-device item, device decode on a mesh
-    (A13(b))."""
-    from wtf_tpu_torch.tenancy import TenancyMeshBackend
-
-    snap = _targets().get("demo_tlv").snapshot()
-    specs = [TenantSpec("a", None, snap, 4)]
-    assert isinstance(create_tenancy_backend(specs, 8, mesh_devices=2,
-                                             device="cpu"),
-                      TenancyMeshBackend)
-    with pytest.raises(ValueError, match=r"A13\(b\)"):
-        create_tenancy_backend(specs, 8, mesh_devices=2, device="cpu",
-                               device_decode=True).initialize()
-
-
 # ---------------------------------------------------------------------------
 # scheduler
 # ---------------------------------------------------------------------------

@@ -270,40 +270,20 @@ def assert_machines_equal(jm: JMachine, tm, skip=(), where="") -> None:
 # campaigns
 # ---------------------------------------------------------------------------
 
-TLV_SEED_INPUT = b"\x01\x04AAAA\x02\x08BBBBBBBB"   # build_tlv_campaign's
-
-
 def build_port_tlv_campaign(n_lanes: int = 64, mutator: str = "mangle",
                             limit: int = 100_000, seed: int = 0x77F,
                             max_len: int = 0x400, megachunk: int = 0,
                             **backend_kwargs):
-    """The port's counterpart of wtf_tpu.analysis.trace.build_tlv_campaign
-    on the CPU: a demo_tlv FuzzLoop with the backend initialized, target
-    init done, one TLV seed in the corpus, and the mutation engine picked
-    by name ("mangle" = best host engine; "devmangle" = the device
-    engine).  `mesh_devices=N` (N shards of the CPU) or `mesh=LaneMesh`
-    builds a MeshBackend."""
-    import random
+    """The package's build_tlv_campaign (wtf_tpu_torch/analysis/trace.py)
+    on the CPU: a demo_tlv FuzzLoop with one TLV seed in the corpus.
+    `mesh_devices=N` (N shards of the CPU) or `mesh=LaneMesh` builds a
+    MeshBackend."""
+    from wtf_tpu_torch.analysis.trace import build_tlv_campaign
 
-    from wtf_tpu_torch.backend import create_backend
-    from wtf_tpu_torch.fuzz.corpus import Corpus
-    from wtf_tpu_torch.fuzz.loop import FuzzLoop
-    from wtf_tpu_torch.fuzz.mutator import create_mutator
-    from wtf_tpu_torch.fuzz.native_mutator import best_mangle_mutator
-    from wtf_tpu_torch.harness import demo_tlv
-
-    backend = create_backend("gpu", demo_tlv.build_snapshot(),
-                             n_lanes=n_lanes, limit=limit, device="cpu",
-                             **backend_kwargs)
-    backend.initialize()
-    demo_tlv.TARGET.init(backend)
-    rng = random.Random(seed)
-    corpus = Corpus(rng=rng)
-    corpus.add(TLV_SEED_INPUT)
-    mut = (best_mangle_mutator(rng, max_len) if mutator == "mangle"
-           else create_mutator(mutator, rng, max_len))
-    return FuzzLoop(backend, demo_tlv.TARGET, mut, corpus,
-                    megachunk=megachunk)
+    return build_tlv_campaign(n_lanes=n_lanes, mutator=mutator, limit=limit,
+                              seed=seed, max_len=max_len,
+                              megachunk=megachunk, device="cpu",
+                              **backend_kwargs)
 
 
 def campaign_fingerprint(loop) -> dict:

@@ -52,6 +52,14 @@ from wtf_tpu_torch.utils.hashing import splitmix64
 MASK64 = (1 << 64) - 1
 
 
+def alias_bytes(m) -> int:
+    """Bytes of the 13 machine/overlay planes K1 updates in place."""
+    ov = m.overlay
+    planes = (m.gpr, m.rip, m.rflags, m.status, m.icount, m.bp_skip, m.ctr,
+              m.cov, m.edge, ov.pfn, ov.data, ov.valid, ov.count)
+    return int(sum(t.numel() * t.element_size() for t in planes))
+
+
 class GpuBackend(Backend):
     def __init__(self, snapshot: Snapshot, n_lanes: int = 64,
                  limit: int = 0, registry: Optional[Registry] = None,
@@ -393,12 +401,7 @@ class GpuBackend(Backend):
         """Bytes of the 13 machine/overlay planes the fused kernel updates
         in place — the per-launch copy-through that in-place planes
         avoid, dominated by the `[lanes, slots, words]` overlay data."""
-        m = self.runner.machine
-        ov = m.overlay
-        planes = (m.gpr, m.rip, m.rflags, m.status, m.icount, m.bp_skip,
-                  m.ctr, m.cov, m.edge, ov.pfn, ov.data, ov.valid,
-                  ov.count)
-        return int(sum(t.numel() * t.element_size() for t in planes))
+        return alias_bytes(self.runner.machine)
 
     def _count_statuses(self, statuses) -> None:
         for code in statuses:

@@ -58,7 +58,9 @@ shards of the CPU with `--device cpu`; `campaign --coordinator
 --num-processes --process-id` joins torch.distributed (gloo) and runs one
 mesh over every process's shards (`--mesh-devices` of them each): the
 `--lanes` batch is global, every process runs the same campaign on it
-and writes the same files.
+and writes the same files.  On a mesh, `campaign --megachunk M` runs its
+windows per shard and `--device-decode` services the windows' decode
+misses with one commit of every shard's blocks (fuzz/megachunk.py).
 `--supervise` / `--dispatch-timeout` put every device dispatch under the
 supervisor (wtf_tpu_torch/supervise), and `campaign --checkpoint-every` /
 `--resume` write and continue crash-safe checkpoints
@@ -716,14 +718,7 @@ def build_campaign(args, registry: Optional[Registry] = None, events=NULL,
     if args.resume and args.runs == 0:
         raise SystemExit("--resume applies to fuzz campaigns "
                          "(--runs > 0); minset replays are stateless")
-    joins = bool(args.coordinator or args.num_processes)
-    if args.megachunk and (joins or mesh is not None
-                           or args.mesh_devices is not None):
-        from wtf_tpu_torch.meshrun.runner import MESH_WINDOW_UNPORTED
-
-        raise SystemExit(f"--mesh-devices {args.mesh_devices}: "
-                         f"{MESH_WINDOW_UNPORTED}")
-    if joins:
+    if args.coordinator or args.num_processes:
         # a multi-process launch joins torch.distributed (gloo) first, and
         # the campaign runs on the global mesh of every process's shards
         # (the first --mesh-devices cards each, N shards of the CPU)
@@ -820,6 +815,19 @@ def _prune_outputs(outputs_snapshot, kept) -> None:
             p.unlink(missing_ok=True)
 
 
+def _leave_processes(loop) -> None:
+    """A campaign whose mesh spans processes leaves torch.distributed
+    together: a barrier, so that no process exits while another still
+    talks to it (gloo aborts the process whose peer went away), then the
+    group's teardown."""
+    mesh = getattr(loop.backend, "mesh", None)
+    if mesh is not None and mesh.world > 1:
+        import torch.distributed as dist
+
+        dist.barrier()
+        dist.destroy_process_group()
+
+
 def cmd_campaign(args) -> int:
     with _telemetry_for(args) as (registry, events):
         if args.runs == 0:
@@ -834,6 +842,7 @@ def cmd_campaign(args) -> int:
             _prune_outputs(outputs_snapshot, kept)
             print(loop.stats.line(len(loop.corpus), loop._coverage()))
             print(f"minset: kept {len(kept)}/{len(loop.corpus)} seeds")
+            _leave_processes(loop)
             return 0 if loop.stats.crashes == 0 else 2
         loop = campaign(args, registry, events)
         print(loop.stats.line(len(loop.corpus), loop._coverage()))
@@ -844,6 +853,7 @@ def cmd_campaign(args) -> int:
                   f"continue with `fleet reshard --checkpoint "
                   f"{loop.checkpoint_dir} --mesh-devices "
                   f"{loop.reshard_to} --runs {args.runs}`")
+        _leave_processes(loop)
         return 0 if loop.stats.crashes == 0 else 2
 
 

@@ -199,10 +199,6 @@ class FuzzLoop:
                 raise ValueError(
                     "--megachunk needs a nonzero --limit: the window's "
                     "quiesce stops on the instruction budget")
-            if getattr(backend, "mesh", None) is not None:
-                from wtf_tpu_torch.meshrun.runner import MESH_WINDOW_UNPORTED
-
-                raise ValueError(MESH_WINDOW_UNPORTED)
         self._runs_budget = 0
         self.stats = CampaignStats(self.registry)
         self.stats_every = stats_every

@@ -54,16 +54,33 @@ NEED_DECODE.  The window then carries the table with the published rows
 to its next batch and returns it with the live count and the service
 stats; parked lanes stay NEED_DECODE, so the host service finishes them.
 
-The machine is updated in place (the JAX window donates it).  Not carried
-yet: the mesh window and its all-gathered service (ROADMAP A13).
+The mesh window (`make_mesh_megachunk`, the JAX package's shard_map
+form) runs the same body per shard of a lane mesh (meshrun/): restore,
+generate over the shard's slice of the seed stream, insert and quiesce act
+on each shard's own lanes (the quiesce's loop condition is shard-local,
+so each shard takes the K1 rounds its lanes need), while every decision
+of the batch — need service, non-clean terminal, new coverage, another
+service round — is one read of every shard's flags (across processes on
+a multi-process mesh), so all shards take the same batches.  The merge is
+the mesh merge (meshrun/reduce.make_mesh_merge), the counter totals and
+the engine rounds are sums over the shards, and the device-decode service
+gathers every shard's blocks and statuses in global lane order for ONE
+commit, whose table is copied to each distinct device and whose per-lane
+outputs each shard takes at its own lane span — so the table's slot order
+and the coverage bits it indexes are those of the single-device window.
+A single device is the mesh of one shard with the plain merge.
+
+The machine is updated in place (the JAX window donates it): K1, the
+restore and the insert write its planes where they lie, and the planes the
+precise step binds anew are copied back into their storage when the window
+ends, so every plane keeps its storage across a window.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-import sys
-from typing import Tuple
+from typing import List, Tuple
 
 import torch
 
@@ -71,15 +88,18 @@ from wtf_tpu_torch.core.results import StatusCode
 from wtf_tpu_torch.devmut.engine import generate
 from wtf_tpu_torch.interp import devdec
 from wtf_tpu_torch.interp import ints as I
-from wtf_tpu_torch.interp import pstep
 from wtf_tpu_torch.interp.machine import (
-    CTR_MEM_FAULT, N_CTRS, machine_restore,
+    CTR_MEM_FAULT, N_CTRS, Machine, machine_restore,
 )
 from wtf_tpu_torch.interp.runner import device_insert_impl
-from wtf_tpu_torch.interp.step import run_steps
-from wtf_tpu_torch.meshrun.reduce import merge_coverage
+from wtf_tpu_torch.meshrun.executor import fence_each, quiesce_shards
+from wtf_tpu_torch.meshrun.mesh import (
+    LaneMesh, gather_lanes, gather_processes, replicate,
+)
+from wtf_tpu_torch.meshrun.reduce import (
+    gather_shards, make_mesh_merge, merge_coverage,
+)
 
-_RUNNING = int(StatusCode.RUNNING)
 _OK = int(StatusCode.OK)
 _TIMEDOUT = int(StatusCode.TIMEDOUT)
 _CR3 = int(StatusCode.CR3_CHANGE)
@@ -121,8 +141,8 @@ class MegaOut:
     new_words: torch.Tensor   # int32[cov_w] last completed batch's delta
     prev: MegaSnap
     cur: MegaSnap
-    # step-engine rounds over the window: [precise sweeps, K1 launches]
-    # (service re-quiesces included)
+    # step-engine rounds over the window, summed over the shards:
+    # [precise sweeps, K1 launches] (service re-quiesces included)
     engine_rounds: Tuple[int, int]
     # device decode (the inputs when the window runs without it): the
     # table with the device-published rows, its live count (-1 without),
@@ -135,152 +155,233 @@ class MegaOut:
     # the machine the window ran on, in place (what scripted poison
     # corrupts, as on the JAX window's output)
     machine: object = None
+    # K1 launches per shard of this process, in shard order
+    shard_k1: List[int] = dataclasses.field(default_factory=list)
 
 
-def quiesce_fused(tab, image, m, limit: int, fused_k: int,
-                  resume_steps: int, spans) -> Tuple[int, int]:
-    """The fused quiesce: K1 is the step engine, the precise step only the
-    park-resume leg, until no lane is RUNNING.  Terminates for the reason
-    the ladder does: every round retires >= 1 instruction per RUNNING lane
-    and a nonzero instruction budget bounds the rest.  Returns (precise
-    sweeps, K1 launches)."""
-    sweeps = launches = 0
-    while bool((m.status == _RUNNING).any()):
-        with spans.span("fused-step") as sp:
-            pstep.fused_step(tab, image, m, limit, fused_k)
-            sp.fence(m.status)
-        with spans.span("device-step") as sp:
-            sweeps += pstep.fused_resume(tab, image, m, limit, resume_steps)
-            sp.fence(m.status)
-        launches += 1
-    return sweeps, launches
+@dataclasses.dataclass
+class _Lanes:
+    """Where a window's lanes live: the shards of `mesh` (one shard for
+    a single device), each with its machine, template and image, and
+    the batch merge over them."""
+
+    mesh: LaneMesh
+    machines: list
+    templates: list
+    images: list
+    merge: object   # (agg_cov, agg_edge, covs, edges, includes) ->
+                    # (agg_cov', agg_edge', new_lanes, new_words)
+
+    @property
+    def bounds(self):
+        """Global (lo, hi) lane span of each local shard."""
+        n = sum(m.n_lanes for m in self.machines) * self.mesh.world
+        return self.mesh.bounds(n)
+
+    def any(self, flags: List[torch.Tensor]) -> list:
+        """Per shard a bool vector of k flags -> k Python bools, each
+        OR-ed over every shard of the mesh: one host read (the JAX
+        window's `any_fn`, a pmax over the lane axis)."""
+        return gather_shards(flags, self.mesh).any(0).tolist()
 
 
-def quiesce_ladder(tab, image, m, limit: int, spans) -> Tuple[int, int]:
-    """The precise step until no lane is RUNNING (decode misses,
-    breakpoints and terminals all leave RUNNING; the nonzero instruction
-    budget bounds the rest).  Returns (precise sweeps, 0)."""
-    with spans.span("device-step") as sp:
-        sweeps = run_steps(tab, image, m, limit, sys.maxsize)
-        sp.fence(m.status)
-    return sweeps, 0
+_REGISTER_PLANES = tuple(f.name for f in dataclasses.fields(Machine)
+                         if f.name != "overlay")
 
 
-def service(tab, count: int, image, m, bp_keys: torch.Tensor, n_bp: int,
-            quiesce, spans):
+def _keep_storage(m: Machine, held: dict) -> None:
+    """Copy each plane `m` bound anew since `held` was taken back into
+    the held tensor, and bind that again."""
+    for name, t in held.items():
+        now = getattr(m, name)
+        if now is not t:
+            t.copy_(now)
+            setattr(m, name, t)
+
+
+def _merge_one(agg_cov, agg_edge, covs, edges, includes):
+    agg_c, agg_e, new_lane, new_w = merge_coverage(
+        agg_cov, agg_edge, covs[0], edges[0], includes[0])
+    return agg_c, agg_e, [new_lane], new_w
+
+
+def service(tabs, count: int, lanes: _Lanes, bp_keys, n_bp: int, quiesce,
+            spans):
     """Device-decode service rounds after a quiesce (the JAX window's
-    `service`): compute every needy lane's block against the round-start
-    table, commit the blocks in lane order, apply the lanes' deltas
-    (status; on a fetch fault fault_gva, fault_write = 0 and one
-    CTR_MEM_FAULT) and re-quiesce with `quiesce(tab)`.  Stops when no
-    unparked lane is NEED_DECODE.  Returns (tab, count, [serviced,
-    published, parked, rounds], (precise sweeps, K1 launches) of the
-    re-quiesces)."""
-    capacity = tab.meta_i32.shape[0]
-    parked = torch.zeros_like(m.status, dtype=torch.bool)
+    `service`): every shard computes its needy lanes' blocks against the
+    round-start table; the blocks and statuses of every shard, gathered
+    in global lane order, go through ONE commit; each shard applies its
+    lane span of the commit's deltas (status; on a fetch fault fault_gva,
+    fault_write = 0 and one CTR_MEM_FAULT), the new table is copied to
+    each distinct device, and the shards re-quiesce with `quiesce(tabs)`.
+    Stops when no unparked lane of any shard is NEED_DECODE.  Returns
+    (tabs, count, [serviced, published, parked, rounds], (precise sweeps,
+    K1 launches per shard) of the re-quiesces)."""
+    mesh, ms = lanes.mesh, lanes.machines
+    dev0 = mesh.devices[0]
+    capacity = tabs[dev0].meta_i32.shape[0]
+    parked = [torch.zeros_like(m.status, dtype=torch.bool) for m in ms]
     stats = [0, 0, 0, 0]
-    sweeps = launches = 0
-    while bool(((m.status == _ND) & ~parked).any()):
+    sweeps, launches = 0, [0] * len(ms)
+    while lanes.any([((m.status == _ND) & ~p).any()[None]
+                     for m, p in zip(ms, parked)])[0]:
         with spans.span("devdec-service") as sp:
-            blocks = devdec.compute_blocks(tab, image, m, bp_keys, n_bp)
-            out = devdec.commit_blocks(tab, count, blocks, m.status,
-                                       capacity)
-            m.status.copy_(out.status)
-            fm = out.fault_mask
-            m.fault_gva.copy_(torch.where(fm, out.fault_gva, m.fault_gva))
-            m.fault_write.copy_(torch.where(fm, 0, m.fault_write))
-            m.ctr[:, CTR_MEM_FAULT] += out.mem_fault_inc
-            sp.fence(m.status)
-        tab, count = out.tab, out.count
-        parked |= out.parked
+            blocks = []
+            for i, m in enumerate(ms):
+                with mesh.scope(i):
+                    blocks.append(devdec.compute_blocks(
+                        tabs[m.device], lanes.images[i], m,
+                        bp_keys[m.device], n_bp))
+            out = devdec.commit_blocks(
+                tabs[dev0], count,
+                devdec.LaneBlock(*(gather_lanes(f, mesh)
+                                   for f in zip(*blocks))),
+                gather_lanes([m.status for m in ms], mesh), capacity)
+            # the commit's per-lane outputs are in global lane order:
+            # each shard takes its own span
+            for i, (m, (lo, hi)) in enumerate(zip(ms, lanes.bounds)):
+                part = slice(lo, hi)
+                fm = out.fault_mask[part].to(m.device)
+                m.status.copy_(out.status[part])
+                m.fault_gva.copy_(torch.where(
+                    fm, out.fault_gva[part].to(m.device), m.fault_gva))
+                m.fault_write.copy_(torch.where(fm, 0, m.fault_write))
+                m.ctr[:, CTR_MEM_FAULT] += out.mem_fault_inc[part].to(
+                    m.device)
+                parked[i] |= out.parked[part].to(m.device)
+            fence_each(sp, [m.status for m in ms])
+        tabs, count = replicate(out.tab, mesh), out.count
         stats = [a + b for a, b in zip(stats, out.stats + (1,))]
-        sw, ln = quiesce(tab)
-        sweeps, launches = sweeps + sw, launches + ln
-    return tab, count, stats, (sweeps, launches)
+        sw, ln = quiesce(tabs)
+        sweeps += sw
+        launches = [a + b for a, b in zip(launches, ln)]
+    return tabs, count, stats, (sweeps, launches)
 
 
-def window(tab, image, machine, template, slab_first: Tuple,
-           slab_rest: Tuple, seeds: torch.Tensor, pfns: torch.Tensor,
-           gva: int, finish: int, limit: int, n_batches: int,
-           agg_cov: torch.Tensor, agg_edge: torch.Tensor, spans, dd=None,
-           *, max_batches: int, len_gpr: int, ptr_gpr: int, rounds: int,
-           deliver: bool, fused: bool, fused_k: int,
-           fused_resume_steps: int) -> MegaOut:
-    """Run one window of up to `n_batches` (<= max_batches) batches on
-    `machine`, in place.  `seeds` is int64[max_batches, L] (the absolute
-    batch indices' lane seeds); slabs are (data, lens, cumw) triples;
-    `spans` records each phase (fenced).  `dd` is the runner's
-    `devdec_operands()`: None without device decode, else (live cache
-    count, pending-breakpoint keys, their live length)."""
-    n_lanes = machine.n_lanes
-    dev = machine.device
+def window(tab, image, machine, template, slab_first, slab_rest, seeds,
+           pfns: torch.Tensor, gva: int, finish: int, limit: int,
+           n_batches: int, agg_cov: torch.Tensor, agg_edge: torch.Tensor,
+           spans, dd=None, *, max_batches: int, len_gpr: int, ptr_gpr: int,
+           rounds: int, deliver: bool, fused: bool, fused_k: int,
+           fused_resume_steps: int, mesh: LaneMesh = None) -> MegaOut:
+    """Run one window of up to `n_batches` (<= max_batches) batches, in
+    place.  `seeds` is int64[max_batches, L] (the absolute batch indices'
+    lane seeds); slabs are (data, lens, cumw) triples; `spans` records
+    each phase (fenced).  `dd` is the runner's `devdec_operands()`: None
+    without device decode, else (live cache count, pending-breakpoint
+    keys, their live length).
+
+    With `mesh` the operands arrive placed for it (MeshRunner): `tab` and
+    the slabs are {device: value} for each distinct device, `image` the
+    list of per-shard images, `machine` and `template` MeshMachines (the
+    shards are their `.shards`), `seeds` the list of per-shard
+    int64[max_batches, L_shard] slices."""
+    if mesh is None:
+        dev = machine.device
+        lanes = _Lanes(LaneMesh([dev]), [machine], [template], [image],
+                       _merge_one)
+        tabs = {dev: tab}
+        slab_first, slab_rest = {dev: slab_first}, {dev: slab_rest}
+        seeds = [seeds]
+    else:
+        lanes = _Lanes(mesh, machine.shards, template.shards, list(image),
+                       make_mesh_merge(mesh))
+        tabs = tab
+    mesh, ms, ts = lanes.mesh, lanes.machines, lanes.templates
+    dev0 = mesh.devices[0]
     B = max_batches
-    serviceable = torch.tensor(
-        SERVICEABLE_DELIVER if deliver else SERVICEABLE_BASE, device=dev)
-    finish_t = torch.tensor(I.s64(finish), device=dev)
-    statuses = torch.full((B, n_lanes), -1, dtype=torch.int32, device=dev)
-    flags = torch.zeros((B, n_lanes), dtype=torch.bool, device=dev)
-    ctr_sums = torch.zeros((B, N_CTRS), dtype=torch.int64, device=dev)
+    consts = replicate((torch.tensor(SERVICEABLE_DELIVER if deliver
+                                     else SERVICEABLE_BASE),
+                        torch.tensor(I.s64(finish)), pfns), mesh)
+    statuses = [torch.full((B, m.n_lanes), -1, dtype=torch.int32,
+                           device=m.device) for m in ms]
+    flags = [torch.zeros((B, m.n_lanes), dtype=torch.bool, device=m.device)
+             for m in ms]
+    # this process's shards' per-batch counter totals (u64 sums, two's
+    # complement); the processes' are summed at the end of the window
+    ctr_sums = torch.zeros((B, N_CTRS), dtype=torch.int64, device=dev0)
     new_words = torch.zeros_like(agg_cov)
-    empty = MegaSnap(words=torch.zeros((n_lanes, slab_first[0].shape[1]),
-                                       dtype=torch.int32, device=dev),
-                     lens=torch.zeros(n_lanes, dtype=torch.int32,
-                                      device=dev))
+    empty = [(torch.zeros((m.n_lanes, next(iter(slab_first.values()))[0]
+                           .shape[1]), dtype=torch.int32, device=m.device),
+              torch.zeros(m.n_lanes, dtype=torch.int32, device=m.device))
+             for m in ms]
     prev = cur = empty
     b, incomplete, find_b = 0, False, B
-    sweeps = launches = 0
-    count, dd_stats, service_k1 = -1, (0, 0, 0, 0), 0
+    sweeps, shard_k1, service_k1 = 0, [0] * len(ms), 0
+    count, dd_stats = -1, (0, 0, 0, 0)
     if dd is not None:
         count, bp_keys, n_bp = dd
-    m = machine
+        bp_keys = replicate(bp_keys, mesh)
 
-    def quiesce(tab):
-        if fused:
-            return quiesce_fused(tab, image, m, limit, fused_k,
-                                 fused_resume_steps, spans)
-        return quiesce_ladder(tab, image, m, limit, spans)
+    held = [{n: getattr(m, n) for n in _REGISTER_PLANES} for m in ms]
+
+    def quiesce(tabs):
+        return quiesce_shards(tabs, lanes.images, ms, limit, mesh, spans,
+                              fused_k if fused else None,
+                              fused_resume_steps)
 
     while b < n_batches:
-        data, lens_s, cumw = slab_first if b == 0 else slab_rest
+        slab = slab_first if b == 0 else slab_rest
         with spans.span("overlay-restore") as sp:
-            machine_restore(m, template)
-            sp.fence(m.status)
+            for i, (m, t) in enumerate(zip(ms, ts)):
+                with mesh.scope(i):
+                    machine_restore(m, t)
+            fence_each(sp, [m.status for m in ms])
         with spans.span("generate") as sp:
-            words, lens = generate(data, lens_s, cumw, seeds[b], rounds)
-            sp.fence(lens)
+            gen = []
+            for i, m in enumerate(ms):
+                data, lens_s, cumw = slab[m.device]
+                with mesh.scope(i):
+                    gen.append(generate(data, lens_s, cumw, seeds[i][b],
+                                        rounds))
+            fence_each(sp, [g[1] for g in gen])
         with spans.span("insert") as sp:
-            device_insert_impl(m, words, lens, pfns, gva, len_gpr, ptr_gpr)
-            sp.fence(m.status)
-        sw, ln = quiesce(tab)
-        sweeps, launches = sweeps + sw, launches + ln
+            for i, (m, (words, lens)) in enumerate(zip(ms, gen)):
+                with mesh.scope(i):
+                    device_insert_impl(m, words, lens, consts[m.device][2],
+                                       gva, len_gpr, ptr_gpr)
+            fence_each(sp, [m.status for m in ms])
+        sw, ln = quiesce(tabs)
+        sweeps += sw
+        shard_k1 = [a + c for a, c in zip(shard_k1, ln)]
         if dd is not None:
-            tab, count, st, (sw, ln) = service(tab, count, image, m,
-                                               bp_keys, n_bp, quiesce, spans)
+            tabs, count, st, (sw, ln) = service(tabs, count, lanes, bp_keys,
+                                                n_bp, quiesce, spans)
             dd_stats = tuple(a + c for a, c in zip(dd_stats, st))
-            sweeps, launches = sweeps + sw, launches + ln
-            service_k1 += ln
+            sweeps += sw
+            shard_k1 = [a + c for a, c in zip(shard_k1, ln)]
+            service_k1 += sum(ln)
         with spans.span("merge"):
-            # declarative stop: BREAKPOINT at the finish rip == the host
-            # handler's stop(Ok()) — pre-execution, so no icount or
-            # coverage for the breakpointed instruction
-            st = torch.where((m.status == _BP) & (m.rip == finish_t), _OK,
-                             m.status).to(torch.int32)
-            m.status.copy_(st)
-            include = (st != _TIMEDOUT) & (st != _OVF)
-            agg_c2, agg_e2, new_lane, new_w = merge_coverage(
-                agg_cov, agg_edge, m.cov, m.edge, include)
-            clean = (st == _OK) | (st == _TIMEDOUT) | (st == _CR3)
-            # the batch's three loop-control flags in one read
-            need_service, bad, found = torch.stack([
-                torch.isin(st, serviceable).any(), (~clean).any(),
-                new_lane.any()]).tolist()
+            sts, includes, local = [], [], []
+            for m in ms:
+                serviceable, finish_t, _ = consts[m.device]
+                # declarative stop: BREAKPOINT at the finish rip == the
+                # host handler's stop(Ok()) — pre-execution, so no icount
+                # or coverage for the breakpointed instruction
+                st = torch.where((m.status == _BP) & (m.rip == finish_t),
+                                 _OK, m.status).to(torch.int32)
+                m.status.copy_(st)
+                sts.append(st)
+                includes.append((st != _TIMEDOUT) & (st != _OVF))
+                clean = (st == _OK) | (st == _TIMEDOUT) | (st == _CR3)
+                local.append(torch.stack([torch.isin(st, serviceable).any(),
+                                          (~clean).any()]))
+            agg_c2, agg_e2, new_lanes, new_w = lanes.merge(
+                agg_cov, agg_edge, [m.cov for m in ms],
+                [m.edge for m in ms], includes)
+            # the batch's three loop-control flags, over every shard, in
+            # one read
+            need_service, bad, found = lanes.any([
+                torch.cat([f, n.any()[None]])
+                for f, n in zip(local, new_lanes)])
         complete = not need_service
         if complete:
             agg_cov, agg_edge, new_words = agg_c2, agg_e2, new_w
-            statuses[b] = st
-            flags[b] = new_lane
-            ctr_sums[b] = (m.ctr.long() & 0xFFFFFFFF).sum(0)
-        prev, cur = cur, MegaSnap(words=words, lens=lens)
+            for i, m in enumerate(ms):
+                statuses[i][b] = sts[i]
+                flags[i][b] = new_lanes[i]
+                ctr_sums[b] += (m.ctr.long() & 0xFFFFFFFF).sum(0).to(dev0)
+        prev, cur = cur, gen
         if complete and found and find_b >= B:
             find_b = b
         # find-stop: after a new-coverage find at batch j the window may
@@ -293,12 +394,28 @@ def window(tab, image, machine, template, slab_first: Tuple,
         incomplete = incomplete or need_service
         if stop:
             break
+    for m, h in zip(ms, held):
+        _keep_storage(m, h)
+
+    def lane_major(parts):
+        """Per-shard [B, L_shard] -> [B, L] of every lane of the mesh."""
+        return gather_lanes([p.T for p in parts], mesh).T
+
+    def snap(per_shard):
+        return MegaSnap(words=gather_lanes([w for w, _ in per_shard], mesh),
+                        lens=gather_lanes([n for _, n in per_shard], mesh))
+
+    totals = gather_processes(
+        torch.tensor([[sweeps, sum(shard_k1), service_k1]]), mesh).sum(0)
+    sweeps, launches, service_k1 = (int(x) for x in totals)
     return MegaOut(agg_cov=agg_cov, agg_edge=agg_edge, batches=b,
-                   incomplete=incomplete, statuses=statuses,
-                   new_flags=flags, ctr_sums=ctr_sums, new_words=new_words,
-                   prev=prev, cur=cur, engine_rounds=(sweeps, launches),
-                   tab=tab, count=count, dd_stats=dd_stats,
-                   service_k1=service_k1, machine=m)
+                   incomplete=incomplete, statuses=lane_major(statuses),
+                   new_flags=lane_major(flags),
+                   ctr_sums=gather_processes(ctr_sums[None], mesh).sum(0),
+                   new_words=new_words, prev=snap(prev), cur=snap(cur),
+                   engine_rounds=(sweeps, launches), tab=tabs[dev0],
+                   count=count, dd_stats=dd_stats, service_k1=service_k1,
+                   machine=machine, shard_k1=shard_k1)
 
 
 def make_megachunk(max_batches: int, len_gpr: int, ptr_gpr: int,
@@ -312,3 +429,16 @@ def make_megachunk(max_batches: int, len_gpr: int, ptr_gpr: int,
         window, max_batches=max_batches, len_gpr=len_gpr, ptr_gpr=ptr_gpr,
         rounds=rounds, deliver=deliver, fused=fused, fused_k=fused_k,
         fused_resume_steps=fused_resume_steps)
+
+
+def make_mesh_megachunk(max_batches: int, len_gpr: int, ptr_gpr: int,
+                        rounds: int, deliver: bool, mesh: LaneMesh,
+                        fused: bool = False, fused_k: int = 32,
+                        fused_resume_steps: int = 1):
+    """The window per shard of `mesh`, with the same signature, its
+    operands placed by MeshRunner.megachunk_place (see `window`); device
+    decode rides on the `dd` operands, as on one device."""
+    return functools.partial(
+        window, max_batches=max_batches, len_gpr=len_gpr, ptr_gpr=ptr_gpr,
+        rounds=rounds, deliver=deliver, fused=fused, fused_k=fused_k,
+        fused_resume_steps=fused_resume_steps, mesh=mesh)

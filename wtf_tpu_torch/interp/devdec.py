@@ -39,9 +39,11 @@ the JAX commit's, bit for bit (tests/test_torch_devdec.py).
 The documented divergence of the JAX package is kept: a lane's walk sees
 the round-start table plus its own records, so when two lanes' prefetch
 regions overlap at differing miss rips the walk shape may differ from the
-host's; the commit then parks (never publishes a different table).  The
-mesh form (all-gathered blocks, a replicated commit) arrives with the
-mesh window (ROADMAP A13).
+host's; the commit then parks (never publishes a different table).  On a
+lane mesh (fuzz/megachunk.py's mesh window) `compute_blocks` runs on each
+shard's machine and `commit_blocks` once, on every shard's blocks and
+statuses gathered in global lane order; its per-lane outputs are cut per
+shard and its table copied to each distinct device.
 """
 
 from __future__ import annotations

@@ -940,8 +940,6 @@ class Runner:
         decode miss moves k x 15 bytes instead of riding the HostView
         page pulls.  Lanes whose rip is cached, or repeats an earlier
         lane's this round, are skipped before the gather."""
-        from wtf_tpu_torch.interp import devdec
-
         want: List[int] = []
         seen: Set[Tuple[int, int]] = set()
         for lane in lanes:
@@ -953,11 +951,9 @@ class Runner:
             want.append(lane)
         if not want:
             return {}
-        m = self.machine
         rips = torch.from_numpy(view.r["rip"].view(np.int64)).to(self.device)
         out = self.supervisor.dispatch(
-            "device-decode", devdec.gather_windows, self.image, m.overlay,
-            m.cr3, rips,
+            "device-decode", self._code_windows, rips,
             torch.tensor(want, dtype=torch.int64, device=self.device),
             sync=lambda o: o[1])
         wins, faults, pfn0s, pfn14s = (x.cpu().numpy() for x in out)
@@ -965,6 +961,13 @@ class Runner:
         return {lane: (wins[j].tobytes(), bool(faults[j]), int(pfn0s[j]),
                        int(pfn14s[j]))
                 for j, lane in enumerate(want)}
+
+    def _code_windows(self, rips: torch.Tensor, idx: torch.Tensor):
+        """devdec.gather_windows over the batch for the lanes `idx`."""
+        from wtf_tpu_torch.interp import devdec
+
+        m = self.machine
+        return devdec.gather_windows(self.image, m.overlay, m.cr3, rips, idx)
 
     def _service_smc(self, view: HostView, lanes: List[int]) -> None:
         for lane in lanes:

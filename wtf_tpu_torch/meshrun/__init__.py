@@ -11,8 +11,10 @@ shards is one batch.
   reduce.py    the batch merge and the OR-reduce family: merge_coverage,
                or_reduce_lanes, bitplane_or, make_mesh_merge (one
                all-gather of per-shard unions per merge)
-  executor.py  the chunk, K1 and resume-leg executors, run per shard
-  runner.py    MeshRunner: the host servicing loop over a sharded batch
+  executor.py  the chunk, K1 and resume-leg executors, run per shard, and
+               the megachunk window's per-shard quiesce
+  runner.py    MeshRunner: the host servicing loop over a sharded batch,
+               and the megachunk window per shard (fuzz/megachunk.py)
   backend.py   MeshBackend: the one-logical-backend seam the fuzz loop,
                dist clients, triage and CLI drive (`--mesh-devices N`)
 
@@ -31,6 +33,7 @@ _EXPORTS = {
     "shard_machine": "mesh",
     "shard_image": "mesh",
     "replicate": "mesh",
+    "gather_lanes": "mesh",
     "or_reduce_lanes": "reduce",
     "merged_coverage": "reduce",
     "merge_coverage": "reduce",
@@ -40,6 +43,8 @@ _EXPORTS = {
     "make_mesh_chunk": "executor",
     "make_mesh_fused": "executor",
     "make_mesh_resume": "executor",
+    "resume_shards": "executor",
+    "quiesce_shards": "executor",
     "MeshRunner": "runner",
     "MeshBackend": "backend",
 }

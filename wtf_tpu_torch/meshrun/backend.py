@@ -22,8 +22,12 @@ existing seams:
 0 = every visible device); `mesh=` passes a LaneMesh built by the caller
 instead: one whose shards share a card, or the multi-process mesh of
 `init_multihost` (`campaign --coordinator`), where `n_lanes` is the
-global batch and every process drives this same backend.  The megachunk window and
-device decode are ROADMAP A13(b): the runner refuses them.
+global batch and every process drives this same backend.  The megachunk
+window runs per shard behind GpuBackend.run_megachunk's seams (the
+runner's `megachunk_callable` and `megachunk_place`): its merged
+aggregates land on the first shard's device, and the device-decode
+harvest and the `devdec.*`, `megachunk.*` and `device.fused_window_*`
+counters are read once per window, for the whole mesh.
 """
 
 from __future__ import annotations
@@ -33,7 +37,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from wtf_tpu_torch.backend.gpu import GpuBackend
+from wtf_tpu_torch.backend.gpu import GpuBackend, alias_bytes
 from wtf_tpu_torch.meshrun.mesh import (
     LaneMesh, gather_processes, make_mesh, split_lanes,
 )
@@ -85,6 +89,12 @@ class MeshBackend(GpuBackend):
             torch.cat([n.to(runner.device) for n in new_lanes]), self.mesh)
         return (agg_cov, agg_edge, new_lane.cpu().numpy(),
                 new_words.cpu().numpy().view(np.uint32))
+
+    def _fused_alias_bytes(self) -> int:
+        """The 13 planes' bytes of every lane of the mesh, from the
+        shards' shapes (never a gather of the planes)."""
+        return self.mesh.world * sum(alias_bytes(m)
+                                     for m in self.runner.shards)
 
     def print_run_stats(self) -> None:
         super().print_run_stats()

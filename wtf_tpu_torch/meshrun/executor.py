@@ -11,6 +11,11 @@ with the shard's card current (`LaneMesh.scope`):
                     local lanes; a shard with no RUNNING lane is skipped
   make_mesh_resume  `pstep.fused_resume` per shard, for the shards K1 ran
                     on (only they can hold parked lanes)
+  quiesce_shards    the megachunk window's quiesce (fuzz/megachunk.py):
+                    K1 rounds (make_mesh_fused) and their resume legs, or
+                    precise steps, until no lane of any shard runs; its
+                    loop condition is shard-local, so each shard takes
+                    exactly the rounds its own lanes need
 
 The chunk and resume executors end with the merged cov/edge bitmaps of
 the whole mesh (`_chunk_with_coverage`): each shard's lane OR, then one
@@ -25,7 +30,8 @@ the per-shard Machines, updated in place.
 
 from __future__ import annotations
 
-from typing import List, Optional
+import sys
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -72,13 +78,16 @@ def make_mesh_chunk(n_steps: int, mesh):
 
 
 def make_mesh_fused(k_steps: int, mesh):
-    """(tab, images, shards, limit) -> [bool per shard]: K1 for up to
-    `k_steps` hot instructions per lane on every shard with a RUNNING
-    lane; returns which shards it launched on."""
+    """(tab, images, shards, limit, live=None) -> [bool per shard]: K1
+    for up to `k_steps` hot instructions per lane on every shard with a
+    RUNNING lane (or on the `live` ones the caller read); returns which
+    shards it launched on."""
     from wtf_tpu_torch.interp import pstep
 
-    def run(tab, images, shards, limit):
-        live = shards_with(shards)
+    def run(tab, images, shards, limit,
+            live: Optional[List[bool]] = None):
+        if live is None:
+            live = shards_with(shards)
         for i, m in enumerate(shards):
             if live[i]:
                 with mesh.scope(i):
@@ -89,20 +98,73 @@ def make_mesh_fused(k_steps: int, mesh):
     return run
 
 
+def resume_shards(tab, images, shards, limit, n_steps: int, mesh,
+                  live: Optional[List[bool]] = None) -> int:
+    """The fused round's precise resume leg on the `live` shards (default:
+    those holding a parked lane); returns the precise sweeps summed over
+    them."""
+    from wtf_tpu_torch.interp import pstep
+
+    if live is None:
+        live = shards_with(shards, int(StatusCode.NEEDS_XLA))
+    sweeps = 0
+    for i, m in enumerate(shards):
+        if live[i]:
+            with mesh.scope(i):
+                sweeps += pstep.fused_resume(tab[m.device], images[i], m,
+                                             limit, n_steps)
+    return sweeps
+
+
 def make_mesh_resume(n_steps: int, mesh):
     """(tab, images, shards, limit, live=None) -> (shards, merged_cov,
-    merged_edge): the fused round's precise resume leg on the `live`
-    shards (default: those holding a parked lane)."""
-    from wtf_tpu_torch.interp import pstep
+    merged_edge): `resume_shards` with the merged bitmaps."""
 
     def body(tab, images, shards, limit,
              live: Optional[List[bool]] = None):
-        if live is None:
-            live = shards_with(shards, int(StatusCode.NEEDS_XLA))
-        for i, m in enumerate(shards):
-            if live[i]:
-                with mesh.scope(i):
-                    pstep.fused_resume(tab[m.device], images[i], m, limit,
-                                       n_steps)
+        resume_shards(tab, images, shards, limit, n_steps, mesh, live)
 
     return _chunk_with_coverage(body, mesh)
+
+
+def fence_each(sp, tensors) -> None:
+    """Fence span `sp` on one of `tensors` per distinct device."""
+    for t in {t.device: t for t in tensors}.values():
+        sp.fence(t)
+
+
+def quiesce_shards(tab, images, shards, limit, mesh, spans,
+                   fused_k: Optional[int] = None,
+                   resume_steps: int = 1) -> Tuple[int, List[int]]:
+    """Run every shard until none of its lanes is RUNNING (decode misses,
+    breakpoints and terminals all leave RUNNING; the nonzero instruction
+    budget bounds the rest).  With `fused_k` each round is K1 on the
+    shards that still run (make_mesh_fused, one host read for all of
+    them), then the precise resume leg on the same shards; without it,
+    precise steps per shard.  Returns (precise sweeps summed over the
+    shards, K1 launches per shard)."""
+    from wtf_tpu_torch.interp.step import run_steps
+
+    launches = [0] * len(shards)
+    sweeps = 0
+    if fused_k is None:
+        with spans.span("device-step") as sp:
+            for i, m in enumerate(shards):
+                with mesh.scope(i):
+                    sweeps += run_steps(tab[m.device], images[i], m, limit,
+                                        sys.maxsize)
+            fence_each(sp, [m.status for m in shards])
+        return sweeps, launches
+    k1 = make_mesh_fused(fused_k, mesh)
+    while True:
+        live = shards_with(shards)
+        if not any(live):
+            return sweeps, launches
+        with spans.span("fused-step") as sp:
+            k1(tab, images, shards, limit, live)
+            fence_each(sp, [m.status for m in shards])
+        with spans.span("device-step") as sp:
+            sweeps += resume_shards(tab, images, shards, limit,
+                                    resume_steps, mesh, live)
+            fence_each(sp, [m.status for m in shards])
+        launches = [n + bool(x) for n, x in zip(launches, live)]

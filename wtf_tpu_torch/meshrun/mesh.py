@@ -178,6 +178,17 @@ def gather_processes(t: torch.Tensor, mesh: LaneMesh) -> torch.Tensor:
             .reshape(-1, *host.shape[1:]).to(t.device))
 
 
+def gather_lanes(parts: Sequence[torch.Tensor],
+                 mesh: LaneMesh) -> torch.Tensor:
+    """Per-lane tensors of this process's shards (in shard order) as one
+    tensor of every lane of the mesh, every process's, in global lane
+    order on the first shard's device (one shard: its tensor as is)."""
+    dev = mesh.devices[0]
+    t = (parts[0].to(dev) if len(parts) == 1
+         else torch.cat([p.to(dev) for p in parts]))
+    return gather_processes(t, mesh)
+
+
 def to_device(obj, device):
     """`obj` (a tensor, None, or a NamedTuple / dataclass / tuple of
     them) with every tensor on `device`; a tensor already there is
@@ -263,9 +274,8 @@ class _Planes:
     def get(self, name: str) -> torch.Tensor:
         hit = self.cache.get(name)
         if hit is None:
-            parts = [getattr(o, name).to(self.device) for o in self.owners]
-            t = gather_processes(
-                parts[0] if len(parts) == 1 else torch.cat(parts), self.mesh)
+            t = gather_lanes([getattr(o, name) for o in self.owners],
+                             self.mesh)
             hit = self.cache[name] = (t, t._version)
         return hit[0]
 

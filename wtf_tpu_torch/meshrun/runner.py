@@ -32,8 +32,14 @@ are the base Runner's; the subclass re-points the device seams:
     shard (`device.shard_fused_dispatches{i}`: kernel launches on a
     card, plain-version calls on the CPU).
 
-The megachunk window and device decode on a mesh are ROADMAP A13(b):
-`megachunk_callable` and `device_decode=True` raise.
+  * the megachunk window runs per shard (fuzz/megachunk.py
+    `make_mesh_megachunk`), its operands placed by `megachunk_place`:
+    the slabs copied once per distinct device and slab version, the
+    seed stream cut with the lanes; K1's launches inside it count per
+    shard too;
+  * with `device_decode`, the window's service commits every shard's
+    blocks at once, and the host service's code windows are gathered per
+    shard on the shard's lanes (`_code_windows`).
 """
 
 from __future__ import annotations
@@ -52,14 +58,9 @@ from wtf_tpu_torch.meshrun.executor import (
     make_mesh_chunk, make_mesh_fused, make_mesh_resume,
 )
 from wtf_tpu_torch.meshrun.mesh import (
-    LaneMesh, MeshMachine, gather_processes, make_mesh, replicate,
-    shard_image, shard_machine, split_lanes,
+    LaneMesh, MeshMachine, gather_processes, lane_sharding, make_mesh,
+    replicate, shard_image, shard_machine, split_lanes,
 )
-
-MESH_WINDOW_UNPORTED = (
-    "the megachunk window and device decode on a lane mesh are not part "
-    "of the port yet (ROADMAP A13(b)): run the mesh without --megachunk "
-    "and --device-decode, or drop --mesh-devices")
 
 
 class MeshRunner(Runner):
@@ -68,8 +69,6 @@ class MeshRunner(Runner):
     def __init__(self, snapshot, n_lanes: int, mesh: Optional[LaneMesh] = None,
                  mesh_devices: Optional[int] = None, device="cuda",
                  **kwargs):
-        if kwargs.get("device_decode"):
-            raise ValueError(MESH_WINDOW_UNPORTED)
         self.mesh = mesh if mesh is not None else make_mesh(mesh_devices,
                                                             device)
         if n_lanes % self.mesh.global_size:
@@ -135,11 +134,14 @@ class MeshRunner(Runner):
         with self._on_shards():
             self._k1_live = make_mesh_fused(self.fused_k, self.mesh)(
                 tab, self.images, self.shards, self.limit)
-        by_shard = self.registry.counter("device.shard_fused_dispatches")
-        for s, live in enumerate(self._k1_live):
-            if live:
-                by_shard.labels(str(self.mesh.first_shard + s)).inc()
+        self._count_k1([int(x) for x in self._k1_live])
         return self.machine
+
+    def _count_k1(self, per_shard) -> None:
+        by_shard = self.registry.counter("device.shard_fused_dispatches")
+        for s, n in enumerate(per_shard):
+            if n:
+                by_shard.labels(str(self.mesh.first_shard + s)).inc(n)
 
     def _resume_leg(self, tab) -> Machine:
         with self._on_shards():
@@ -149,8 +151,78 @@ class MeshRunner(Runner):
             self._merged = (cov, edge)
         return self.machine
 
-    def megachunk_callable(self, *args, **kwargs):
-        raise ValueError(MESH_WINDOW_UNPORTED)
+    def megachunk_callable(self, max_batches: int, len_gpr: int,
+                           ptr_gpr: int, rounds: int):
+        """The megachunk window per shard (fuzz/megachunk.py
+        `make_mesh_megachunk`) behind the single-device window's
+        signature: it runs on the shards and their images whatever
+        machine and image the caller passes, with host writes into
+        gathered planes landed first and the gathers it makes stale
+        dropped after."""
+        from wtf_tpu_torch.fuzz.megachunk import make_mesh_megachunk
+
+        fn = make_mesh_megachunk(max_batches, len_gpr, ptr_gpr, rounds,
+                                 deliver=self.deliver_exceptions,
+                                 mesh=self.mesh,
+                                 fused=bool(self.fused_enabled),
+                                 fused_k=self.fused_k,
+                                 fused_resume_steps=self.fused_resume_steps)
+
+        def run(tab, _image, _machine, _template, *operands):
+            with self._on_shards():
+                out = fn(tab, self.images, self.machine, self.template,
+                         *operands)
+            self._merged = None
+            self._count_k1(out.shard_k1)
+            return out
+
+        return run
+
+    def megachunk_place(self, slab_first, slab_rest, seeds):
+        """One window's operands placed for the shards: the slabs copied
+        once per distinct device and per slab version (shared with
+        `devmut_generate`'s copy), the seed stream [B, L] cut with the
+        lanes."""
+        if slab_rest[0] is not self._slab_src:
+            self._slab_src = slab_rest[0]
+            self._slab_repl = replicate(slab_rest, self.mesh)
+        rest = self._slab_repl
+        first = (rest if slab_first[0] is slab_rest[0]
+                 else replicate(slab_first, self.mesh))
+        cut = [seeds[:, lo:hi].to(d)
+               for d, lo, hi in lane_sharding(self.mesh, seeds.shape[1])]
+        return first, rest, cut
+
+    def _code_windows(self, rips: torch.Tensor, idx: torch.Tensor):
+        """The host decode service's code windows (devdec.gather_windows)
+        per shard, for the asked lanes it holds; on a multi-process mesh
+        each process fills its own lanes' rows and one all-gather hands
+        every process every row."""
+        from wtf_tpu_torch.interp import devdec
+
+        self.machine.flush()
+        dev = self.device
+        k = idx.shape[0]
+        rows = torch.zeros((k, 18), dtype=torch.int64, device=dev)
+        idx_h = idx.cpu()
+        for s, (lo, hi) in enumerate(self.mesh.bounds(self.n_lanes)):
+            sel = ((idx_h >= lo) & (idx_h < hi)).nonzero()[:, 0]
+            if not len(sel):
+                continue
+            m = self.shards[s]
+            with self.mesh.scope(s):
+                win, fault, pfn0, pfn14 = devdec.gather_windows(
+                    self.images[s], m.overlay, m.cr3,
+                    rips[lo:hi].to(m.device), (idx_h[sel] - lo).to(m.device))
+            rows[sel.to(dev)] = torch.cat(
+                [win.long(), fault.long()[:, None], pfn0.long()[:, None],
+                 pfn14.long()[:, None]], 1).to(dev)
+        if self.mesh.world > 1:
+            owner = idx_h // (self.n_lanes // self.mesh.world)
+            rows = gather_processes(rows[None], self.mesh)[
+                owner.to(dev), torch.arange(k, device=dev)]
+        return (rows[:, :15].to(torch.uint8), rows[:, 15].bool(),
+                rows[:, 16].to(torch.int32), rows[:, 17].to(torch.int32))
 
     # -- host write seams: per shard, on the shard's lanes ---------------
     def overlay_row(self, lane: int, slot: int):

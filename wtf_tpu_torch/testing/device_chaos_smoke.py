@@ -1,0 +1,190 @@
+"""The seeded self-healing-runtime soak, the counterpart of
+wtf_tpu/testing/device_chaos_smoke.py.
+
+    python -m wtf_tpu_torch.testing.device_chaos_smoke [seed] --device cpu
+
+(`--device` defaults to cuda, like every entry point of the port).  Every
+leg drives the same seeded demo_tlv devmangle campaign (8 lanes x 4
+batches) through the supervisor (wtf_tpu_torch/supervise) with a
+scripted device-fault plan (testing/faultinject.py — faults fire on the
+Nth supervised dispatch, never on the wall clock), and holds the final
+campaign state — coverage count, edge-byte sum, corpus digests, crash
+names, testcase count — BIT-IDENTICAL to the fault-free reference:
+
+  error leg       a scripted device error mid-campaign on the batch path:
+                  the batch is abandoned, the backend rebuilt from host
+                  state, the ladder degrades one rung and re-promotes
+                  after clean batches;
+  megachunk leg   supervised megachunk windows equal the plain run, then
+                  a scripted HANG fires the dispatch watchdog mid-window:
+                  the window is abandoned, the ladder drops to batch at a
+                  time, replays, and re-promotes back to megachunk;
+  quarantine leg  scripted lane poison with quarantine_threshold=1: the
+                  integrity check flags the lane, the supervisor parks it
+                  idle (never harvested) and the campaign completes every
+                  testcase on the other lanes.
+
+Exit 0 only when every parity and counter assertion held (>= 1 watchdog
+fire, >= 1 degradation and re-promotion, >= 1 quarantined lane); any
+assertion prints and exits 1.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+SEED = 0xC4A05
+
+LANES, BATCHES = 8, 4
+RUNS = LANES * BATCHES
+
+
+def _build(seed: int, device) -> dict:
+    return dict(n_lanes=LANES, mutator="devmangle", limit=20_000,
+                seed=seed & 0xFFFF, chunk_steps=128, overlay_slots=16,
+                device=device)
+
+
+def _state_of(loop) -> tuple:
+    """The bit-identity tuple: coverage count, sorted corpus digests,
+    crash names, testcases, and the raw edge-byte sum."""
+    import numpy as np
+
+    return (loop._coverage(), sorted(loop.corpus.digests),
+            sorted(loop.crash_names), loop.stats.testcases,
+            int(np.asarray(loop.backend.coverage_state()[1]).sum()))
+
+
+def _error_leg(seed: int, device):
+    from wtf_tpu_torch.analysis.trace import build_tlv_campaign
+    from wtf_tpu_torch.supervise import DEVICE_ERROR
+    from wtf_tpu_torch.testing.faultinject import FaultPlan, chaos_device
+
+    build = _build(seed, device)
+    ref = build_tlv_campaign(**build)
+    ref.fuzz(RUNS)
+    ref_state = _state_of(ref)
+
+    # supervised fault-free: parity AND the dispatch count that anchors
+    # the scripted fault index (operation-indexed, not wall-clock)
+    sup = build_tlv_campaign(supervise=True, dispatch_timeout=30.0, **build)
+    sup.fuzz(RUNS)
+    assert _state_of(sup) == ref_state, "supervised fault-free parity broken"
+    n_disp = sup.backend.supervisor.registry.counter(
+        "supervise.dispatches").value
+
+    plan = FaultPlan([], device_faults={n_disp // 2: DEVICE_ERROR})
+    err = build_tlv_campaign(supervise=True, dispatch_timeout=30.0,
+                             promote_after=2, **build)
+    with chaos_device(plan):
+        err.fuzz(RUNS)
+    err_state = _state_of(err)
+    assert err_state == ref_state, \
+        f"error-recovery parity broken:\n ref {ref_state}\n got {err_state}"
+    reg = err.backend.supervisor.registry
+    out = {"dispatches": n_disp,
+           "retries": reg.counter("supervise.batch_retries").value,
+           "rebuilds": reg.counter("supervise.rebuilds").value,
+           "degradations": reg.counter("supervise.degradations").value,
+           "promotions": reg.counter("supervise.promotions").value,
+           "fired": list(plan.fired)}
+    assert out["rebuilds"] >= 1, "scripted error forced no rebuild"
+    assert out["degradations"] >= 1 and out["promotions"] >= 1, \
+        f"ladder never cycled: {out}"
+    return out, ref_state
+
+
+def _megachunk_leg(seed: int, ref_state: tuple, device) -> dict:
+    from wtf_tpu_torch.analysis.trace import build_tlv_campaign
+    from wtf_tpu_torch.supervise import DEVICE_HANG
+    from wtf_tpu_torch.testing.faultinject import FaultPlan, chaos_device
+
+    build = _build(seed, device)
+    msup = build_tlv_campaign(megachunk=2, supervise=True,
+                              dispatch_timeout=30.0, **build)
+    msup.fuzz(RUNS)
+    assert _state_of(msup) == ref_state, \
+        "supervised megachunk parity vs plain broken"
+    n_disp = msup.backend.supervisor.registry.counter(
+        "supervise.dispatches").value
+
+    # a hang mid-schedule: the watchdog abandons the in-flight window,
+    # the ladder degrades to batch at a time, and promote_after=1
+    # re-promotes to megachunk within the same short campaign
+    plan = FaultPlan([], device_faults={n_disp // 2: DEVICE_HANG})
+    mh = build_tlv_campaign(megachunk=2, supervise=True,
+                            dispatch_timeout=30.0, promote_after=1, **build)
+    with chaos_device(plan):
+        mh.fuzz(RUNS)
+    mh_state = _state_of(mh)
+    assert mh_state == ref_state, \
+        f"megachunk hang parity broken:\n ref {ref_state}\n got {mh_state}"
+    reg = mh.backend.supervisor.registry
+    out = {"dispatches": n_disp,
+           "watchdog_fires": reg.counter("supervise.watchdog_fires").value,
+           "degradations": reg.counter("supervise.degradations").value,
+           "promotions": reg.counter("supervise.promotions").value,
+           "fired": list(plan.fired)}
+    assert out["watchdog_fires"] >= 1, "scripted hang never fired watchdog"
+    assert out["degradations"] >= 1 and out["promotions"] >= 1, \
+        f"ladder never cycled on the megachunk leg: {out}"
+    return out
+
+
+def _quarantine_leg(seed: int, device) -> dict:
+    from wtf_tpu_torch.analysis.trace import build_tlv_campaign
+    from wtf_tpu_torch.supervise import DEVICE_POISON
+    from wtf_tpu_torch.testing.faultinject import FaultPlan, chaos_device
+
+    build = _build(seed, device)
+    # poison lane 3 on dispatch 6 (a mid-campaign dispatch of the plain
+    # supervised schedule; poison on a seam without machine state slides
+    # to the next); threshold=1 quarantines on first sight
+    plan = FaultPlan([], device_faults={6: (DEVICE_POISON, 3)})
+    q = build_tlv_campaign(supervise=True, dispatch_timeout=30.0,
+                           quarantine_threshold=1, **build)
+    with chaos_device(plan):
+        q.fuzz(RUNS)
+    sup = q.backend.supervisor
+    assert sup.quarantined == {3}, \
+        f"expected lane 3 quarantined, got {sorted(sup.quarantined)}"
+    assert q.stats.testcases == RUNS, \
+        f"campaign did not complete around the quarantined lane: " \
+        f"{q.stats.testcases}/{RUNS}"
+    reg = sup.registry
+    return {"quarantined": sorted(sup.quarantined),
+            "quarantined_counter": reg.counter("device.quarantined").value,
+            "poisoned_lanes": reg.counter("supervise.poisoned_lanes").value,
+            "testcases": q.stats.testcases,
+            "coverage": q._coverage()}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("seed", nargs="?", type=lambda v: int(v, 0),
+                    default=SEED)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; raises without a CUDA device), "
+                         "cuda:N, or cpu")
+    args = ap.parse_args(argv)
+    seed, device = args.seed, args.device
+    print(f"device-chaos-smoke seed={seed:#x}")
+    try:
+        err, ref_state = _error_leg(seed, device)
+        print(f"error leg OK: {err}")
+        mega = _megachunk_leg(seed, ref_state, device)
+        print(f"megachunk leg OK: {mega}")
+        quar = _quarantine_leg(seed, device)
+        print(f"quarantine leg OK: {quar}")
+    except AssertionError as e:
+        print(f"device-chaos-smoke FAILED: {e}")
+        return 1
+    print("device-chaos-smoke PASS (>=1 watchdog fire, >=1 degradation + "
+          "re-promotion, >=1 quarantined lane, recovery bit-identical to "
+          "the fault-free run)")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -14,7 +14,12 @@ the exclusive prefix credit across processes) on `merge_case(N)`'s
 bitmaps and reports its result; with `--rows`, a MeshRunner over the
 global batch is seeded (each page write lands on the lane's owner) and
 every lane's input is read back through a fresh HostView (the owner's
-overlay row all-gathered).
+overlay row all-gathered); with `--window N`, a demo_tlv devmangle
+campaign of megachunk windows of N batches runs over the global batch
+and its fingerprint is reported; `--device-decode` adds the window's
+decode service (every process's blocks go through one commit) and the
+same campaign batch at a time, whose host decode service gathers the
+missing lanes' code windows from their owners.
 
     python -m wtf_tpu_torch.testing.multihost_worker \\
         --coordinator 127.0.0.1:PORT --num-processes 2 --process-id 0 \\
@@ -123,6 +128,41 @@ def run_mesh_rows(mesh, lanes: int, overlay_slots: int = 16) -> dict:
             "rows_digest": hex_digest(b"".join(got))}
 
 
+def run_mesh_window(mesh, lanes: int, megachunk: int, runs: int,
+                    device_decode: bool = False,
+                    fused: bool = True) -> dict:
+    """A demo_tlv devmangle campaign (limit 20,000, seed 0x5EED, 16
+    overlay slots) of `runs` testcases through megachunk windows of
+    `megachunk` batches (0: batch at a time) on the mesh, `lanes` per
+    process; returns its fingerprint (every value the same in each
+    process of a multi-process mesh)."""
+    from wtf_tpu_torch.analysis.trace import build_tlv_campaign
+    from wtf_tpu_torch.utils.hashing import hex_digest
+
+    loop = build_tlv_campaign(n_lanes=lanes * mesh.world,
+                              mutator="devmangle", limit=20_000,
+                              seed=0x5EED, chunk_steps=128, overlay_slots=16,
+                              megachunk=megachunk, mesh=mesh,
+                              device=mesh.devices[0],
+                              fused_step="on" if fused else "off",
+                              device_decode=device_decode)
+    loop.fuzz(runs)
+    cov, edge = loop.backend.coverage_state()
+    reg = loop.registry
+    entries = loop.backend.runner.cache.checkpoint_entries()
+    return {"cov_edge": hex_digest(cov.tobytes() + edge.tobytes()),
+            "corpus": [hex_digest(d) for d in loop.corpus],
+            "crashes": sorted(loop.crash_names),
+            "testcases": loop.stats.testcases,
+            "entries": hex_digest(repr(list(entries)).encode()),
+            "counters": {n: reg.counter(n).value for n in (
+                "megachunk.windows", "device.fused_window_rounds",
+                "device.fused_window_xla_steps", "devdec.published",
+                "devdec.service_rounds", "devdec.crosscheck_mismatches")},
+            "code_windows": loop.backend.runner.stats[
+                "decode_windows_gathered"]}
+
+
 def merge_case(seed: int, n_lanes: int):
     """Seeded bitmaps for the batch merge, as numpy uint32: (agg_cov
     [24], agg_edge [40], cov [L, 24], edge [L, 40], include bool[L]),
@@ -188,6 +228,11 @@ def main(argv=None) -> int:
     ap.add_argument("--rows", action="store_true",
                     help="also read every lane's input back through a "
                          "MeshRunner's HostView")
+    ap.add_argument("--window", type=int, default=0, metavar="N",
+                    help="also run a campaign of megachunk windows of N "
+                         "batches over the global batch (3 batches)")
+    ap.add_argument("--device-decode", action="store_true",
+                    help="that campaign with device decode")
     args = ap.parse_args(argv)
 
     import torch.distributed as dist
@@ -213,6 +258,13 @@ def main(argv=None) -> int:
         if args.rows:
             report.update(run_mesh_rows(mesh, args.lanes,
                                         args.overlay_slots))
+        if args.window:
+            runs = 3 * args.lanes * mesh.world
+            report["window"] = run_mesh_window(
+                mesh, args.lanes, args.window, runs, args.device_decode)
+            if args.device_decode:
+                report["host_decode"] = run_mesh_window(
+                    mesh, args.lanes, 0, runs, True)
     finally:
         dist.destroy_process_group()
     print(json.dumps(report), flush=True)
