@@ -263,11 +263,28 @@ Phases (each prints one line; any failure exits non-zero):
  39. the 64-lane x 4-shard --device-decode window twin (128 runs) on the
      card and, in a worker process, on the CPU: equal, decode-cache
      entries included
+ 40. phase 5's campaign again with `--xprof-dir D --xprof-batches 2`
+     (the port's torch.profiler window over two steady-state batches,
+     CUDA activity and CPU-side stacks): the final line, corpus and
+     crashes equal phase 5's; D's Chrome trace parses; its K1 kernels
+     equal the pstep.LAUNCHES delta over the window; the window's CUDA
+     kernels, memcpy DtoH and the top five call sites of those copies
+     (the innermost wtf_tpu_torch frame around each copy's runtime call)
+ 41. `python -m wtf_tpu_torch lint --device cuda --json`: CLEAN, each
+     census program's CPU op count equal to its pin, its CUDA launches,
+     K1 kernels (== its fused rounds, on the card and the CPU) and DtoH
+     copies on the card
+ 42. `python -m wtf_tpu_torch.testing.{triage_smoke,obs_smoke,
+     chaos_smoke} --device cuda`: each exits 0 with its OK line,
+     triage_smoke's 43 -> 34-byte pin included
 
 Phase 8 fails unless its host mutator is the native engine (the one the
 reference CLI picks).  Every phase always runs, at the sizes above.
 The card is one: the mesh phases' shards share it, so they exercise the
 per-shard paths and say nothing of a mesh of several cards.
+Phases 40-42 run in niced subprocesses started after phase 38, beside
+the twins below (phase 40 as `chip_smoke.py --xprof-phase DIR`), and
+are checked after them.
 Phases 6, 9, 11, 14, 17, 28, 32, 36 and 39 and the comparisons of phases
 20-26 run last, after the timed phases: their CPU sides run in worker
 processes started together (spawned, and joined before the script ends)
@@ -290,6 +307,7 @@ import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
@@ -1153,7 +1171,7 @@ def device_busy(prof) -> tuple:
                            per_kernel.items()}
 
 
-def phase_campaign(k1: dict, k2: dict, record: dict) -> None:
+def phase_campaign(k1: dict, k2: dict, record: dict) -> dict:
     import torch
 
     from wtf_tpu_torch import cli
@@ -1195,6 +1213,8 @@ def phase_campaign(k1: dict, k2: dict, record: dict) -> None:
           f"device bytes in use {in_use} (peak {peak}); statuses "
           f"{counts}; crashes {loop.stats.crashes}, corpus "
           f"{len(loop.corpus)}")
+    ref = {"line": stats_line(loop), "corpus": sorted(loop.corpus.digests),
+           "crashes": sorted(loop.crash_names)}
     k1["launches"] = launches["fused_step"]
     k2["launches"] = launches["probe"]
     k1["launches_by_path"] = {"demo_tlv": launches["fused_step"]}
@@ -1253,6 +1273,7 @@ def phase_campaign(k1: dict, k2: dict, record: dict) -> None:
 
     profiled_rerun("phase 5", CAMPAIGN, record["campaign"],
                    launches["fused_step"], wall)
+    return ref
 
 
 def profiled_rerun(phase: str, argv: list, rec: dict, k1_launches: int,
@@ -4815,6 +4836,235 @@ def phase_mesh_window_card_vs_cpu(cpu) -> None:
           f"{want['wall_s']:.1f} s in a worker process)")
 
 
+# phases 40-42: the port's own checks
+XPROF_BATCHES = 2                      # phase 40's profiler window
+SMOKES = (("triage_smoke", "[triage-smoke] PASS"),
+          ("obs_smoke", "obs smoke PASS"),
+          ("chaos_smoke", "chaos-smoke PASS"))
+DTOH_SITES = 5
+
+
+def dtoh_sites(path: Path) -> dict:
+    """From a torch.profiler Chrome trace with CPU-side stacks: the
+    kernel count, K1's, the device-to-host copies, and the copies per
+    call site — the innermost wtf_tpu_torch frame around the runtime call
+    that made each copy (its `correlation` id ties the two)."""
+    import bisect
+
+    kernels = k1 = 0
+    dtoh, runtime, frames = [], {}, {}
+    for e in json.loads(path.read_text())["traceEvents"]:
+        cat, name = e.get("cat", ""), e.get("name", "")
+        if cat == "kernel":
+            kernels += 1
+            k1 += "fused_step_kernel" in name
+        elif cat == "gpu_memcpy" and "DtoH" in name:
+            dtoh.append(e.get("args", {}).get("correlation"))
+        elif cat == "cuda_runtime":
+            runtime[e.get("args", {}).get("correlation")] = (e["tid"],
+                                                             e["ts"])
+        elif cat == "python_function" and "wtf_tpu_torch/" in name:
+            frames.setdefault(e["tid"], []).append(
+                (e["ts"], e["ts"] + e.get("dur", 0), name))
+    for rows in frames.values():
+        rows.sort()
+    sites = {}
+    for corr in dtoh:
+        tid, ts = runtime.get(corr, (None, None))
+        rows = frames.get(tid, [])
+        # the innermost package frame open at the call: the latest start
+        # at or before it whose interval still covers it
+        i = bisect.bisect_right(rows, (ts, float("inf"), ""))
+        site = "(no package frame)"
+        while i > 0:
+            i -= 1
+            if rows[i][1] >= ts:
+                site = rows[i][2]
+                break
+        sites[site] = sites.get(site, 0) + 1
+    return {"kernels": kernels, "k1": k1, "dtoh": len(dtoh),
+            "sites": sorted(sites.items(), key=lambda kv: -kv[1])}
+
+
+def xprof_run(out: Path) -> int:
+    """Phase 40's campaign, run as `chip_smoke.py --xprof-phase DIR` in a
+    process of its own beside the twins: phase 5's campaign with
+    `--xprof-dir --xprof-batches 2`, its results, the window's K1
+    launches (pstep.LAUNCHES at the window's edges) and the trace's
+    summary written to DIR/xprof.json for phase_xprof to check."""
+    import torch
+
+    from wtf_tpu_torch import cli
+    from wtf_tpu_torch.fuzz.loop import FuzzLoop
+    from wtf_tpu_torch.interp import pstep
+
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        xdir = Path(tmp) / "xprof"
+        a = cli.build_parser().parse_args(CAMPAIGN + [
+            "--xprof-dir", str(xdir), "--xprof-batches", str(XPROF_BATCHES)])
+        t0 = time.perf_counter()
+        loop = cli.build_campaign(a)
+        window = {}
+        arm, disarm = loop._maybe_xprof, loop._stop_xprof
+
+        def maybe_xprof():
+            was = loop._xprof_active
+            arm()
+            if loop._xprof_active and not was:
+                window["start"] = (pstep.LAUNCHES["fused_step"],
+                                   loop.batches_done)
+
+        def stop_xprof():
+            if loop._xprof_active:
+                window["stop"] = (pstep.LAUNCHES["fused_step"],
+                                  loop.batches_done)
+            disarm()
+
+        loop._maybe_xprof, loop._stop_xprof = maybe_xprof, stop_xprof
+        loop.fuzz(runs=a.runs)
+        torch.cuda.synchronize()
+        doc = {"wall_s": time.perf_counter() - t0, "window": window,
+               "line": stats_line(loop),
+               "corpus": sorted(loop.corpus.digests),
+               "crashes": sorted(loop.crash_names)}
+        trace = xdir / FuzzLoop.XPROF_TRACE
+        if trace.is_file():
+            doc["trace_bytes"] = trace.stat().st_size
+            t1 = time.perf_counter()
+            doc["summary"] = dtoh_sites(trace)
+            doc["parse_s"] = time.perf_counter() - t1
+    (out / "xprof.json").write_text(json.dumps(doc))
+    return 0
+
+
+def phase_xprof(doc: dict, ref: dict, record: dict) -> None:
+    """Phase 40: phase 5's campaign under the profiler window (xprof_run):
+    its results equal phase 5's, D's Chrome trace parses, K1's kernels in
+    it equal pstep.LAUNCHES over the window, and the window's blocking
+    device-to-host copies are attributed to their call sites."""
+    bad = [k for k in ("line", "corpus", "crashes") if doc[k] != ref[k]]
+    check(not bad, f"phase 40: the profiled campaign differs from phase "
+                   f"5's in {bad}")
+    window = doc["window"]
+    check("start" in window and "stop" in window,
+          f"phase 40: the xprof window never opened or closed: {window}")
+    check("summary" in doc, "phase 40: no Chrome trace in --xprof-dir")
+    summary = doc["summary"]
+    k1_window = window["stop"][0] - window["start"][0]
+    batches = window["stop"][1] - window["start"][1]
+    check(summary["k1"] == k1_window,
+          f"phase 40: the trace holds {summary['k1']} K1 kernels, "
+          f"pstep.LAUNCHES moved by {k1_window} over the window")
+    top = summary["sites"][:DTOH_SITES]
+    print(f"phase 40: campaign --xprof-dir --xprof-batches {XPROF_BATCHES} "
+          f"equal to phase 5 ({doc['line']}) in {doc['wall_s']:.2f} s "
+          f"beside the twins; window over batches {window['start'][1]}-"
+          f"{window['stop'][1]} ({batches}): {summary['kernels']} CUDA "
+          f"kernels, K1 {summary['k1']} == pstep.LAUNCHES {k1_window}, "
+          f"{summary['dtoh']} memcpy DtoH; trace {doc['trace_bytes']} "
+          f"bytes, parsed in {doc['parse_s']:.1f} s; top DtoH call sites: "
+          + "; ".join(f"{site} x{n}" for site, n in top))
+    record["xprof"] = {"wall_s": doc["wall_s"], "batches": batches,
+                       "kernels": summary["kernels"], "k1": summary["k1"],
+                       "dtoh": summary["dtoh"], "sites": summary["sites"],
+                       "trace_bytes": doc["trace_bytes"],
+                       "parse_s": doc["parse_s"]}
+
+
+def start_checks(work: Path) -> dict:
+    """Phases 40-42 in subprocesses started together, niced like the
+    twins' workers, beside the twins: phase 40's profiled campaign, the
+    lint with the census on the card, and the three smokes on cuda.
+    Their output goes to files under `work`."""
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    argv = {"xprof": [str(root / "chip_smoke.py"), "--xprof-phase",
+                      str(work)],
+            "lint": ["-m", "wtf_tpu_torch", "lint", "--device", "cuda",
+                     "--json"]}
+    for name, _ in SMOKES:
+        argv[name] = ["-m", f"wtf_tpu_torch.testing.{name}", "--device",
+                      "cuda"]
+    t0 = time.perf_counter()
+    procs, ended = {}, {}
+
+    def wait(name, proc):
+        proc.wait()
+        ended[name] = time.perf_counter() - t0
+
+    for name, args in argv.items():
+        with (work / f"{name}.out").open("w") as out, \
+                (work / f"{name}.err").open("w") as err:
+            proc = subprocess.Popen(
+                [sys.executable] + args, cwd=root, env=env, stdout=out,
+                stderr=err, preexec_fn=lambda: os.nice(10))
+        waiter = threading.Thread(target=wait, args=(name, proc),
+                                  daemon=True)
+        waiter.start()
+        procs[name] = (proc, waiter)
+    return {"procs": procs, "work": work, "ended": ended}
+
+
+def finish_checks(checks: dict, record: dict, ref5: dict) -> None:
+    """Phases 40-42: wait for what start_checks started and check it."""
+    out = {}
+    for name, (proc, waiter) in checks["procs"].items():
+        waiter.join(900)
+        check(not waiter.is_alive(), f"phases 40-42: {name} did not end")
+        out[name] = (proc.returncode,
+                     (checks["work"] / f"{name}.out").read_text(),
+                     (checks["work"] / f"{name}.err").read_text(),
+                     checks["ended"][name])
+    rc, stdout, stderr, secs = out["xprof"]
+    check(rc == 0, f"phase 40: the profiled campaign exited {rc}: "
+                   f"{(stdout + stderr)[-2000:]}")
+    phase_xprof(json.loads((checks["work"] / "xprof.json").read_text()),
+                ref5, record)
+    rc, stdout, stderr, secs = out["lint"]
+    check(rc == 0, f"phase 41: lint --device cuda exited {rc}: "
+                   f"{(stdout + stderr)[-2000:]}")
+    doc = json.loads(stdout.strip().splitlines()[-1])
+    check(doc["clean"], f"phase 41: lint findings {doc['findings']}")
+    from wtf_tpu_torch.analysis.rules import load_budgets
+
+    pins = load_budgets()
+    parts = []
+    for name, cpu in doc["census"].items():
+        dev = doc["device_census"][name]
+        check(cpu["total"] == pins[name]["total"],
+              f"phase 41: {name}'s CPU census {cpu['total']} is not its pin")
+        check(dev["fused_step"] == dev["k1_kernels"] == cpu["fused_step"],
+              f"phase 41: {name}: K1 {dev['fused_step']} rounds, "
+              f"{dev['k1_kernels']} kernels on the card, "
+              f"{cpu['fused_step']} on the CPU")
+        parts.append(f"{name} {cpu['total']} ops (card {dev['total']}), "
+                     f"{dev['cuda_launches']} launches, K1 "
+                     f"{dev['k1_kernels']}, {dev['memcpy_dtoh']} DtoH, "
+                     f"{cpu['host_reads']} host reads")
+    print(f"phase 41: lint --device cuda CLEAN ({','.join(doc['families'])}"
+          f"; ended {secs:.1f} s after its start, census "
+          f"{doc['seconds']['census']} s): " + "; ".join(parts)
+          + f"; mesh gathers {doc['mesh_gathers']}")
+    record["lint"] = {"seconds": secs, "lint_seconds": doc["seconds"],
+                      "census": doc["census"],
+                      "device_census": doc["device_census"],
+                      "mesh_gathers": doc["mesh_gathers"]}
+    for name, ok in SMOKES:
+        rc, stdout, stderr, secs = out[name]
+        check(rc == 0 and any(ln.startswith(ok)
+                              for ln in stdout.splitlines()),
+              f"phase 42: {name} --device cuda exited {rc}: "
+              f"{(stdout + stderr)[-2000:]}")
+        record.setdefault("smokes", {})[name] = secs
+    check("[triage-smoke] minimize: 43 -> 34 bytes" in out["triage_smoke"][1],
+          "phase 42: triage_smoke's 43 -> 34-byte pin did not hold")
+    print("phase 42: " + "; ".join(
+        f"{name} --device cuda OK (ended {out[name][3]:.1f} s after its "
+        f"start)" for name, _ in SMOKES)
+        + "; triage_smoke's 43 -> 34-byte pin held")
+
+
 def start_cpu_references(pool, keep: Path, vbreak_input: bytes) -> dict:
     """The CPU sides of phases 6, 9, 11, 14, 17, 20, 21-23, 24-26, 28, 32,
     36 and 39, started together in worker processes once the card's
@@ -4902,7 +5152,18 @@ def main(argv=None) -> int:
                          "machine whose Python has no PyOpenGL wheel; "
                          "without it phases 30 and 32's demo_pe parts "
                          "skip there")
+    ap.add_argument("--xprof-phase", type=Path, default=None,
+                    metavar="DIR",
+                    help="run phase 40's profiled campaign alone and write "
+                         "its record to DIR/xprof.json (the script runs it "
+                         "so, in a process beside the twins)")
     args = ap.parse_args(argv)
+    if args.xprof_phase is not None:
+        import torch
+
+        if not torch.cuda.is_available():
+            fail("torch.cuda.is_available() is False")
+        return xprof_run(args.xprof_phase)
     if args.pe_dll is not None:
         # read by wtf_tpu_torch/harness/demo_pe.py at import, here and in
         # the worker processes (spawned with this environment)
@@ -4933,7 +5194,7 @@ def main(argv=None) -> int:
     phase_random_stacked(dev, k1, record)
     phase_run()
     stamp("1-4")
-    phase_campaign(k1, k2, record)
+    ref5 = phase_campaign(k1, k2, record)
     stamp("5")
     phase_step_sys(dev, record)
     stamp("7")
@@ -4977,6 +5238,10 @@ def main(argv=None) -> int:
     stamp("33-35")
     phase_mesh_window(k1, k2, record, window_ref, dd_ref)
     stamp("37-38")
+    # phases 40-42 in subprocesses beside the twins
+    checks_dir = Path(work.name) / "checks"
+    checks_dir.mkdir()
+    checks = start_checks(checks_dir)
     # the CPU references of phases 6, 9, 11, 14, 17, 20, 21-23, 24-26, 28,
     # 32, 36 and 39 run in worker processes, after every timed phase, while
     # this process runs their card sides
@@ -5009,14 +5274,16 @@ def main(argv=None) -> int:
             (("mesh",), (), lambda: phase_mesh_card_vs_cpu(cpu)),
             (("mesh window",), (),
              lambda: phase_mesh_window_card_vs_cpu(cpu))], got)
-    work.cleanup()
     stamp("twins")
+    finish_checks(checks, record, ref5)
+    stamp("40-42")
+    work.cleanup()
     record["elapsed_s"] = elapsed
     record["twins_cpu_done_s"] = dict(sorted(CPU_DONE_S.items(),
                                              key=lambda kv: -kv[1]))
     print(f"chip_smoke: the twins' CPU sides ended (seconds from the pool's "
           f"start): {record['twins_cpu_done_s']}")
-    print(f"chip_smoke: every phase passed in {elapsed['twins']:.1f} s "
+    print(f"chip_smoke: every phase passed in {elapsed['40-42']:.1f} s "
           f"(seconds from the start at the end of each group: {elapsed})")
 
     kernels = {"kernels": [k1, k2]}

@@ -42,6 +42,10 @@ from wtf_tpu_torch.testing.faultinject import (
 )
 from wtf_tpu_torch.utils.hashing import hex_digest
 
+from tests.torchport import one_torch_thread  # noqa: F401  (module fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 REPO = Path(__file__).resolve().parent.parent
 
 

@@ -26,6 +26,10 @@ from wtf_tpu_torch.devmut import hostref
 from wtf_tpu_torch.devmut.corpus import DeviceCorpus
 from wtf_tpu_torch.devmut.engine import generate, seeds_from_pairs
 
+from tests.torchport import one_torch_thread  # noqa: F401  (module fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 SEEDS = [0xDEAD_BEEF_1234, 7, (1 << 64) - 3]
 N_LANES = 16
 

@@ -43,7 +43,8 @@ import pytest
 from test_harness import BENIGN, OVERFLOW, tlv
 
 REPO = Path(__file__).resolve().parent.parent
-ENV = dict(os.environ, JAX_PLATFORMS="cpu")
+# one torch thread in the port's processes: their tensors are 4 lanes wide
+ENV = dict(os.environ, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1")
 MASTER = ["--name", "demo_tlv", "--runs", "24", "--seed", "5",
           "--max_len", "64"]
 NODE = ["fuzz", "--name", "demo_tlv", "--lanes", "4", "--limit", "20000",

@@ -36,8 +36,13 @@ import pytest
 
 from test_harness import BENIGN
 
+from tests.torchport import one_torch_thread  # noqa: F401  (module fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 REPO = Path(__file__).resolve().parent.parent
-ENV = dict(os.environ, JAX_PLATFORMS="cpu")
+# one torch thread in the port's processes: their tensors are narrow
+ENV = dict(os.environ, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1")
 
 
 def _both(name: str):

@@ -17,6 +17,10 @@ from tests.test_limbs import CORNERS, SHIFTS
 from wtf_tpu.interp import limbs as L
 from wtf_tpu_torch.interp import ints as I
 
+from tests.torchport import one_torch_thread  # noqa: F401  (module fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 MASK64 = (1 << 64) - 1
 
 

@@ -25,6 +25,10 @@ from wtf_tpu_torch.mem import overlay as TO
 from wtf_tpu_torch.mem import paging as TP
 from wtf_tpu_torch.mem.physmem import MemImage
 
+from tests.torchport import one_torch_thread  # noqa: F401  (module fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 N_LANES = 8
 SLOTS = 16
 SPAN = 256

@@ -27,6 +27,10 @@ import zipfile
 import numpy as np
 import pytest
 
+from tests.torchport import one_torch_thread  # noqa: F401  (module fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 SEEDS = (1, 7, 123)
 CORPUS_SEEDS = (b"\x01\x04AAAA\x02\x08BBBBBBBB", b"hello world!", b"\x00")
 CROSS = b"MAGICMARKER-cross-over"

@@ -24,6 +24,9 @@ import pytest
 import torch
 
 from tests import torchport as tp
+from tests.torchport import one_torch_thread  # noqa: F401  (module fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 REPO = Path(__file__).resolve().parent.parent
 CRASHER = bytes([1, 8]) + b"A" * 8 + bytes([3, 0x30]) + b"B" * 0x30

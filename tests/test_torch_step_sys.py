@@ -53,7 +53,7 @@ _FP = frozenset(getattr(U, f"OPC_{n}") for g in FP_GROUPS
 
 
 def _opclasses(asm: str) -> set:
-    code = assemble(asm)
+    code = tp.assemble_private(asm)
     out, off = set(), 0
     while off < len(code):
         uop = decode(code[off:off + 15], CODE_BASE + off)

@@ -10,6 +10,11 @@ comparison is bit-exact.
 
 from __future__ import annotations
 
+import pickle
+import subprocess
+import tempfile
+from functools import lru_cache, partial
+from pathlib import Path
 from typing import Dict, Optional
 
 import jax.numpy as jnp
@@ -335,6 +340,54 @@ def checkpoint_at_every_boundary(loop, ckpt_dir, copies_dir) -> None:
         original(print_stats)
 
     loop._heartbeat = heartbeat
+
+
+@lru_cache(maxsize=None)
+def assemble_private(source: str) -> bytes:
+    """tests/asmhelper.py's `assemble` without its on-disk cache, which
+    another process may be writing when this one reads it (a truncated
+    read): what decides a file's parametrisation at collection must
+    assemble the same in every xdist worker."""
+    with tempfile.TemporaryDirectory() as tmp:
+        obj, binf = Path(tmp) / "t.o", Path(tmp) / "t.bin"
+        subprocess.run(["as", "-msyntax=intel", "-mnaked-reg", "-o",
+                        str(obj), "--"], input=source.encode(),
+                       capture_output=True, check=True)
+        subprocess.run(["objcopy", "-O", "binary", "--only-section=.text",
+                        str(obj), str(binf)], check=True)
+        return binf.read_bytes()
+
+
+def spawned_pool(workers: int):
+    """A ProcessPoolExecutor of `workers` spawned processes on one torch
+    thread each, for a test that runs independent legs of a smoke at
+    once (the smoke's functions, so the workers import no JAX)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+
+    return ProcessPoolExecutor(
+        workers, initializer=torch.set_num_threads, initargs=(1,),
+        mp_context=multiprocessing.get_context("spawn"))
+
+
+class _CallOnLoad:
+    """Pickles as a call: loading it runs fn(*args, **kw)."""
+
+    def __init__(self, fn, *args, **kw):
+        self.call = partial(fn, *args, **kw)
+
+    def __reduce__(self):
+        return self.call, ()
+
+
+def submit_now(pool, fn, *args, **kw):
+    """pool.submit(fn, *args, **kw) with the call pickled here and now:
+    the pool pickles in a thread of its own, after the test may have
+    monkeypatched fn's name in its module for the in-process side."""
+    return pool.submit(pickle.loads,
+                       pickle.dumps(_CallOnLoad(fn, *args, **kw)))
 
 
 @pytest.fixture(scope="module")

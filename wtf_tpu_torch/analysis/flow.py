@@ -1,0 +1,488 @@
+"""Shared static-analysis engine: module/AST walking and dataflow.
+
+A copy of wtf_tpu/analysis/flow.py, pointed at the port's modules
+(`wtf_tpu_torch.*` site strings).  Every source-inspection lint family
+of the port rides this one engine:
+
+  * site resolution — `"module:Class.method"` strings (the
+    supervise.SEAM_SITES idiom) resolve to a `FunctionInfo` carrying the
+    AST node, file and line, so findings get provenance for free;
+  * per-function dataflow — attribute-assignment/read extraction over a
+    base name (`self`, or a named parameter like `loop`), the raw
+    material of the state and thread families;
+  * transitive name resolution — the parity resolver's
+    worklist-over-local-bindings algorithm, here also through tuple
+    assignments (`is_a, is_b = is_(U.OPC_A), is_(U.OPC_B)`, the port's
+    house style);
+  * call classification — supervisor.dispatch routing, telemetry
+    serialization, and host-read call sites with line numbers: numpy's
+    (`np.asarray`) and torch's (`.item()`, `.tolist()`, `.cpu()`,
+    `.numpy()`, and `bool()` / `int()` / `float()` of a value) — on a
+    CUDA tensor each is a blocking device-to-host copy;
+  * thread-entry discovery — `threading.Thread(target=...)` call sites
+    resolved to the qualname of the function the thread will run.
+
+Pure AST: nothing here imports the analyzed modules beyond locating
+their source (importlib for the file path only), so the engine runs in
+milliseconds and never touches a device.
+"""
+
+from __future__ import annotations
+
+import ast
+import importlib
+import inspect
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional, Sequence, Set, Tuple
+
+# ---------------------------------------------------------------------------
+# module walking
+# ---------------------------------------------------------------------------
+
+_SRC_CACHE: Dict[str, str] = {}
+_AST_CACHE: Dict[str, ast.Module] = {}
+_FILE_CACHE: Dict[str, str] = {}
+
+
+def module_source(modname: str) -> str:
+    """Source text of an importable module (cached)."""
+    if modname not in _SRC_CACHE:
+        mod = importlib.import_module(modname)
+        _SRC_CACHE[modname] = inspect.getsource(mod)
+        _FILE_CACHE[modname] = inspect.getsourcefile(mod) or modname
+    return _SRC_CACHE[modname]
+
+
+def module_file(modname: str) -> str:
+    module_source(modname)
+    return _FILE_CACHE[modname]
+
+
+def module_ast(modname: str) -> ast.Module:
+    if modname not in _AST_CACHE:
+        _AST_CACHE[modname] = ast.parse(module_source(modname))
+    return _AST_CACHE[modname]
+
+
+@dataclass
+class FunctionInfo:
+    """A resolved function/method: AST node plus file:line provenance."""
+
+    module: str
+    qualname: str  # "Class.method", "func", "Class.method.inner"
+    file: str
+    lineno: int
+    node: ast.AST  # FunctionDef / AsyncFunctionDef
+
+
+def function_index(modname: str) -> Dict[str, FunctionInfo]:
+    """Every function/method in a module keyed by dotted qualname,
+    including nested defs ("Class.method.inner")."""
+    index: Dict[str, FunctionInfo] = {}
+    fname = module_file(modname)
+
+    def visit(node: ast.AST, prefix: str) -> None:
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                qual = f"{prefix}{child.name}" if prefix else child.name
+                index[qual] = FunctionInfo(
+                    module=modname, qualname=qual, file=fname,
+                    lineno=child.lineno, node=child)
+                visit(child, qual + ".")
+            elif isinstance(child, ast.ClassDef):
+                qual = f"{prefix}{child.name}" if prefix else child.name
+                visit(child, qual + ".")
+
+    visit(module_ast(modname), "")
+    return index
+
+
+def resolve_site(site: str) -> FunctionInfo:
+    """Resolve a `"module:Qual.name"` site string to a FunctionInfo.
+    Raises (ImportError / KeyError / OSError) when unresolvable — the
+    caller decides whether that is itself a finding (supervise family)
+    or someone else's (telemetry family)."""
+    mod_name, _, qual = site.partition(":")
+    index = function_index(mod_name)  # raises on bad module
+    if qual in index:
+        return index[qual]
+    # runtime fallback: re-exported or dynamically attached callables
+    obj = importlib.import_module(mod_name)
+    for part in qual.split("."):
+        obj = getattr(obj, part)  # raises AttributeError: the finding
+    src = inspect.getsource(obj)
+    node = ast.parse(inspect.cleandoc("\n" + src) if src[0] in " \t"
+                     else src).body[0]
+    _, lineno = inspect.getsourcelines(obj)
+    return FunctionInfo(module=mod_name, qualname=qual,
+                        file=inspect.getsourcefile(obj) or mod_name,
+                        lineno=lineno, node=node)
+
+
+def class_functions(modname: str, classname: str) -> Dict[str, FunctionInfo]:
+    """The methods (and their nested defs) of one class, keyed by the
+    qualname RELATIVE to the class ("run", "_bounded_wait.waiter")."""
+    prefix = classname + "."
+    out: Dict[str, FunctionInfo] = {}
+    for qual, info in function_index(modname).items():
+        if qual.startswith(prefix):
+            out[qual[len(prefix):]] = info
+    if not out:
+        raise KeyError(f"no class {classname!r} in module {modname!r}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# per-function dataflow: attribute writes/reads over a base name
+# ---------------------------------------------------------------------------
+
+def _target_attrs(target: ast.AST, base: str) -> List[Tuple[str, int]]:
+    """(attr, lineno) pairs assigned under one assignment target."""
+    if isinstance(target, ast.Attribute) and \
+            isinstance(target.value, ast.Name) and target.value.id == base:
+        return [(target.attr, target.lineno)]
+    if isinstance(target, (ast.Tuple, ast.List)):
+        out: List[Tuple[str, int]] = []
+        for elt in target.elts:
+            out.extend(_target_attrs(elt, base))
+        return out
+    if isinstance(target, ast.Starred):
+        return _target_attrs(target.value, base)
+    return []
+
+
+def _walk_scope(node: ast.AST, include_nested: bool):
+    """Child statements of a function body; descends into nested defs
+    only when asked (the thread family keeps closures separate)."""
+    for child in ast.iter_child_nodes(node):
+        if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef,
+                              ast.Lambda)) and not include_nested:
+            continue
+        yield child
+        yield from _walk_scope(child, include_nested)
+
+
+def attribute_writes(node: ast.AST, base: str = "self",
+                     include_nested: bool = True) -> List[Tuple[str, int]]:
+    """Every `<base>.attr = ...` (Assign/AugAssign/AnnAssign, tuple
+    targets included) in a function body, as (attr, lineno)."""
+    writes: List[Tuple[str, int]] = []
+    for sub in _walk_scope(node, include_nested):
+        if isinstance(sub, ast.Assign):
+            for t in sub.targets:
+                writes.extend(_target_attrs(t, base))
+        elif isinstance(sub, (ast.AugAssign, ast.AnnAssign)):
+            writes.extend(_target_attrs(sub.target, base))
+        elif isinstance(sub, (ast.For, ast.AsyncFor)):
+            writes.extend(_target_attrs(sub.target, base))
+        elif isinstance(sub, (ast.With, ast.AsyncWith)):
+            for item in sub.items:
+                if item.optional_vars is not None:
+                    writes.extend(_target_attrs(item.optional_vars, base))
+    return writes
+
+
+def attribute_reads(node: ast.AST, base: str = "self",
+                    include_nested: bool = True) -> List[Tuple[str, int]]:
+    """Every `<base>.attr` load in a function body, as (attr, lineno)."""
+    reads: List[Tuple[str, int]] = []
+    for sub in _walk_scope(node, include_nested):
+        if (isinstance(sub, ast.Attribute)
+                and isinstance(sub.ctx, ast.Load)
+                and isinstance(sub.value, ast.Name)
+                and sub.value.id == base):
+            reads.append((sub.attr, sub.lineno))
+    return reads
+
+
+def class_attribute_writes(modname: str, classname: str
+                           ) -> Dict[str, List[Tuple[str, int]]]:
+    """attr -> [(method_qualname, lineno), ...] over every method of a
+    class — the raw mutable-attribute surface of the state family."""
+    surface: Dict[str, List[Tuple[str, int]]] = {}
+    for qual, info in class_functions(modname, classname).items():
+        if "." in qual:
+            continue  # nested defs are walked within their method
+        self_name = _self_param(info.node)
+        if self_name is None:
+            continue  # staticmethod: no instance surface
+        for attr, lineno in attribute_writes(info.node, self_name):
+            surface.setdefault(attr, []).append((qual, lineno))
+    return surface
+
+
+def _self_param(node: ast.AST) -> Optional[str]:
+    args = getattr(node, "args", None)
+    if args is None or not args.args:
+        return None
+    return args.args[0].arg
+
+
+def function_param_accesses(info: FunctionInfo, param: str
+                            ) -> Set[str]:
+    """Attributes of `param` a function reads OR writes — the coverage
+    extractor of the state family (what `checkpoint_state(self)` reads
+    is checkpointed; what `restore_state(self)` writes is restored)."""
+    accessed = {a for a, _ in attribute_writes(info.node, param)}
+    accessed |= {a for a, _ in attribute_reads(info.node, param)}
+    return accessed
+
+
+# ---------------------------------------------------------------------------
+# transitive name resolution (the parity resolver, generalized)
+# ---------------------------------------------------------------------------
+
+def name_bindings(tree: ast.AST) -> Dict[str, List[ast.AST]]:
+    """Name -> [RHS value nodes] over every Assign/AugAssign in a tree
+    (the house style routes predicate sets through locals and builds
+    with `|=`; a literal-only walk of one RHS would be blind to both)."""
+    defs: Dict[str, List[ast.AST]] = {}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Assign):
+            for t in node.targets:
+                for name, value in bound_pairs(t, node.value):
+                    defs.setdefault(name, []).append(value)
+        elif isinstance(node, ast.AugAssign):
+            if isinstance(node.target, ast.Name):
+                defs.setdefault(node.target.id, []).append(node.value)
+    return defs
+
+
+def bound_pairs(target: ast.AST, value: ast.AST
+                 ) -> List[Tuple[str, ast.AST]]:
+    """(name, RHS) pairs one assignment target binds: `a = x`, and
+    `a, b = x, y` element-wise (a tuple target over any other RHS binds
+    every name to the whole RHS — conservative)."""
+    if isinstance(target, ast.Name):
+        return [(target.id, value)]
+    if isinstance(target, (ast.Tuple, ast.List)):
+        out: List[Tuple[str, ast.AST]] = []
+        elts = (value.elts if isinstance(value, (ast.Tuple, ast.List))
+                and len(value.elts) == len(target.elts) else None)
+        for i, elt in enumerate(target.elts):
+            out.extend(bound_pairs(elt, elts[i] if elts else value))
+        return out
+    if isinstance(target, ast.Starred):
+        return bound_pairs(target.value, value)
+    return []
+
+
+def resolve_transitive(src: str, target: str,
+                       extract: Callable[[ast.AST], Set[str]]) -> Set[str]:
+    """Values `extract` finds under every assignment reachable from
+    `target`, resolving intermediate Name bindings transitively.
+    Raises ValueError when `target` is never assigned."""
+    defs = name_bindings(ast.parse(src))
+    if target not in defs:
+        raise ValueError(f"no `{target} = ...` assignment found in source")
+    names: Set[str] = set()
+    seen = {target}
+    work = [target]
+    while work:
+        for rhs in defs[work.pop()]:
+            names |= extract(rhs)
+            for sub in ast.walk(rhs):
+                if (isinstance(sub, ast.Name) and sub.id in defs
+                        and sub.id not in seen):
+                    seen.add(sub.id)
+                    work.append(sub.id)
+    return names
+
+
+# ---------------------------------------------------------------------------
+# call classification
+# ---------------------------------------------------------------------------
+
+def dispatch_seams(node: ast.AST) -> Set[str]:
+    """String literals dispatched through `*.dispatch("<seam>", ...)` on
+    a supervisor (or a local alias of one) — the supervise routing
+    contract, AST-level (no regex false hits on comments or
+    docstrings)."""
+    # local aliases: `sup = self.supervisor` (the port's house style)
+    aliases = {t.id for sub in ast.walk(node) if isinstance(sub, ast.Assign)
+               and _attr_tail_is(sub.value, "supervisor")
+               for t in sub.targets if isinstance(t, ast.Name)}
+    seams: Set[str] = set()
+    for sub in ast.walk(node):
+        if (isinstance(sub, ast.Call)
+                and isinstance(sub.func, ast.Attribute)
+                and sub.func.attr == "dispatch"
+                and (_attr_tail_is(sub.func.value, "supervisor")
+                     or (isinstance(sub.func.value, ast.Name)
+                         and sub.func.value.id in aliases))
+                and sub.args
+                and isinstance(sub.args[0], ast.Constant)
+                and isinstance(sub.args[0].value, str)):
+            seams.add(sub.args[0].value)
+    return seams
+
+
+def _attr_tail_is(node: ast.AST, name: str) -> bool:
+    """True for `supervisor`, `self.supervisor`, `runner.supervisor`…"""
+    if isinstance(node, ast.Name):
+        return node.id == name
+    if isinstance(node, ast.Attribute):
+        return node.attr == name
+    return False
+
+
+# serialization surface: building a wire/export payload from the metric
+# registry.  The pattern strings mirror the retired regex exactly —
+# tests pin them in Finding.primitive.
+def serialization_calls(node: ast.AST) -> List[Tuple[str, int]]:
+    hits: List[Tuple[str, int]] = []
+    for sub in ast.walk(node):
+        if not isinstance(sub, ast.Call):
+            continue
+        f = sub.func
+        if isinstance(f, ast.Attribute):
+            if f.attr == "snapshot":
+                hits.append((".snapshot(", sub.lineno))
+            elif f.attr in ("encode_telem", "render_prometheus"):
+                hits.append((f"{f.attr}(", sub.lineno))
+            elif (f.attr == "dumps" and isinstance(f.value, ast.Name)
+                    and f.value.id == "json"):
+                hits.append(("json.dumps(", sub.lineno))
+        elif isinstance(f, ast.Name) and \
+                f.id in ("encode_telem", "render_prometheus"):
+            hits.append((f"{f.id}(", sub.lineno))
+    return hits
+
+
+# host-read calls: the device->host sync surface the transfer family
+# audits inside dispatch seams.  Kind strings appear verbatim in
+# contracts.json allowlist rows and in Finding.primitive.  On a CUDA
+# tensor every one of them is a blocking device-to-host copy; the AST
+# cannot tell a tensor from a host value, so each needs an allowlist row
+# saying which it is.
+_HOST_READ_METHODS = ("item", "tolist", "cpu", "numpy")
+
+
+def coercion_calls(node: ast.AST) -> List[Tuple[str, int]]:
+    hits: List[Tuple[str, int]] = []
+    for sub in ast.walk(node):
+        if not isinstance(sub, ast.Call):
+            continue
+        f = sub.func
+        if isinstance(f, ast.Attribute):
+            if f.attr in _HOST_READ_METHODS and not sub.args:
+                hits.append((f".{f.attr}()", sub.lineno))
+            elif (f.attr == "asarray"
+                    and isinstance(f.value, ast.Name)
+                    and f.value.id == "np"):
+                hits.append(("np.asarray()", sub.lineno))
+        elif isinstance(f, ast.Name) and f.id in ("float", "bool", "int"):
+            if sub.args and not _is_constant(sub.args[0]):
+                hits.append((f"{f.id}()", sub.lineno))
+    return hits
+
+
+def _is_constant(node: ast.AST) -> bool:
+    """A literal, or a member of a class-level constant namespace
+    (`StatusCode.RUNNING`: a capitalized name's attribute) — never a
+    tensor."""
+    if isinstance(node, ast.Constant):
+        return True
+    return (isinstance(node, ast.Attribute)
+            and isinstance(node.value, ast.Name)
+            and node.value.id[:1].isupper())
+
+
+# ---------------------------------------------------------------------------
+# thread-entry discovery + per-root access closure
+# ---------------------------------------------------------------------------
+
+def thread_targets(modname: str) -> List[Tuple[str, int]]:
+    """(qualname, lineno) of every function handed to
+    `threading.Thread(target=...)` in a module — the real host-thread
+    entry points the thread family audits."""
+    out: List[Tuple[str, int]] = []
+    index = function_index(modname)
+    for qual, info in index.items():
+        for sub in ast.walk(info.node):
+            if not (isinstance(sub, ast.Call)
+                    and isinstance(sub.func, ast.Attribute)
+                    and sub.func.attr == "Thread"
+                    and isinstance(sub.func.value, ast.Name)
+                    and sub.func.value.id == "threading"):
+                continue
+            for kw in sub.keywords:
+                if kw.arg != "target":
+                    continue
+                if isinstance(kw.value, ast.Name):
+                    # nearest enclosing scope first: a nested def named
+                    # X inside this function wins over a module-level X
+                    nested = f"{qual}.{kw.value.id}"
+                    target = nested if nested in index else kw.value.id
+                    out.append((target, sub.lineno))
+                elif isinstance(kw.value, ast.Attribute):
+                    out.append((kw.value.attr, sub.lineno))
+    return sorted(set(out))
+
+
+def _called_methods(node: ast.AST, self_name: str) -> Set[str]:
+    calls: Set[str] = set()
+    for sub in ast.walk(node):
+        if (isinstance(sub, ast.Call)
+                and isinstance(sub.func, ast.Attribute)
+                and isinstance(sub.func.value, ast.Name)
+                and sub.func.value.id == self_name):
+            calls.add(sub.func.attr)
+    return calls
+
+
+def thread_root_accesses(modname: str, classname: str,
+                         roots: Dict[str, Sequence[str]]
+                         ) -> Dict[str, Dict[str, Dict[str, List[int]]]]:
+    """Per-root attribute access sets for a class.
+
+    `roots` maps a root name (one thread entry point: "reactor",
+    "watchdog", "control"…) to the class-relative qualnames it starts
+    from.  Each root's closure expands through `self.method()` calls —
+    but never INTO another root's entry functions (the watchdog closure
+    nested inside `_bounded_wait` stays the watchdog's even though the
+    dispatcher defines it).
+
+    Returns {root: {"writes": {attr: [lineno…]}, "reads": {…}}}.
+    """
+    funcs = class_functions(modname, classname)
+    out: Dict[str, Dict[str, Dict[str, List[int]]]] = {}
+    all_entries = {q for quals in roots.values() for q in quals}
+    for root, entries in roots.items():
+        other = {q for q in all_entries if q not in set(entries)}
+        closure: Set[str] = set()
+        work = [q for q in entries if q in funcs]
+        missing = [q for q in entries if q not in funcs]
+        if missing:
+            raise KeyError(
+                f"thread root {root!r} of {modname}:{classname} names "
+                f"unknown functions {missing!r}")
+        writes: Dict[str, List[int]] = {}
+        reads: Dict[str, List[int]] = {}
+        while work:
+            qual = work.pop()
+            if qual in closure:
+                continue
+            closure.add(qual)
+            info = funcs[qual]
+            # the method owning a nested entry ("m" for "m.inner")
+            # resolves self through ITS first parameter
+            owner = qual.split(".")[0]
+            self_name = _self_param(funcs[owner].node) or "self"
+            for attr, ln in attribute_writes(info.node, self_name,
+                                             include_nested=False):
+                writes.setdefault(attr, []).append(ln)
+            for attr, ln in attribute_reads(info.node, self_name,
+                                            include_nested=False):
+                reads.setdefault(attr, []).append(ln)
+            for callee in _called_methods(info.node, self_name):
+                if callee in funcs and callee not in other:
+                    work.append(callee)
+            # nested defs run on this root's thread unless they are
+            # another root's entry point
+            for sub_qual in funcs:
+                if (sub_qual.startswith(qual + ".")
+                        and sub_qual not in other):
+                    work.append(sub_qual)
+        out[root] = {"writes": writes, "reads": reads}
+    return out

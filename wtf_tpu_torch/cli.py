@@ -1,5 +1,5 @@
 """CLI entry point: `python -m wtf_tpu_torch {run|campaign|sched|triage|fuzz|
-master|fleet|status|snapshot}`.
+master|fleet|status|lint|snapshot}`.
 
 The counterpart of wtf_tpu/cli.py for the single-device subcommands and the
 master/client plane, with the JAX package's flag names and meanings for the
@@ -32,13 +32,18 @@ subset it supports plus `--device`:
             wire) and `fsck` (verify and repair a content-addressed store)
   status    render the status.json a master (or campaign) keeps under
             --telemetry-dir
+  lint      the port's lint (wtf_tpu_torch/analysis): the AST contract
+            families and the op census of the steady-state programs,
+            pinned on the CPU and, by default, also run on the card
   snapshot  convert a snapshot between mem.npz and a Windows crash dump
             (mem.dmp, bitmap or full)
 
 `run`, `campaign`, `sched`, `triage` and `fuzz` run on a CUDA device by
 default (`--device cuda`) and raise when there is none; `--device cpu`
 runs the plain PyTorch versions of the kernels on the CPU.  `master`,
-`fleet` and `status` do no device work, as in the JAX package.  `run`,
+`fleet` and `status` do no device work, as in the JAX package, and
+`lint` runs its census on the card as well unless given `--device cpu`
+(its AST families alone need no device).  `run`,
 `campaign`, `triage vbreak` and `fuzz` take `--backend emu` to run on the
 single-step oracle instead (`--backend gpu`, the default, is the device
 batch; the JAX CLI's `run` defaults to its oracle).  `--burst-any-tier
@@ -284,6 +289,18 @@ def build_parser() -> argparse.ArgumentParser:
                            "for a multi-process launch (host:port)")
     camp.add_argument("--num-processes", type=int, default=None)
     camp.add_argument("--process-id", type=int, default=None)
+    camp.add_argument("--xprof-dir", type=Path, default=None,
+                      help="write one torch.profiler window (CPU and, on "
+                           "a card, CUDA activity with CPU-side stacks) "
+                           "over --xprof-batches steady-state batches "
+                           "(the first 2 are skipped) into this dir as a "
+                           "Chrome trace; open it with Perfetto or "
+                           "chrome://tracing.  For counts and call sites "
+                           "only: on a card the stacks slow the window's "
+                           "batches about tenfold, so its timings are "
+                           "not the campaign's")
+    camp.add_argument("--xprof-batches", type=int, default=4,
+                      help="batches inside the --xprof-dir window")
     _add_mesh_arg(camp)
 
     sched = sub.add_parser(
@@ -503,6 +520,14 @@ def build_parser() -> argparse.ArgumentParser:
     status.add_argument("--watch", type=float, default=0.0, metavar="SECS",
                         help="re-render every SECS seconds until ^C "
                              "(0 = render once)")
+
+    lint = sub.add_parser(
+        "lint", help="the port's lint: hot-path contracts and the op "
+                     "census (wtf_tpu_torch/analysis; the census also on "
+                     "the card unless --device cpu)")
+    from wtf_tpu_torch.analysis import add_lint_arguments
+
+    add_lint_arguments(lint)
 
     snap = sub.add_parser(
         "snapshot", help="convert snapshots between formats")
@@ -754,7 +779,9 @@ def build_campaign(args, registry: Optional[Registry] = None, events=NULL,
                     crashes_dir=paths.crashes, registry=registry,
                     events=events, checkpoint_dir=ckpt_dir,
                     checkpoint_every=args.checkpoint_every, store=store,
-                    megachunk=args.megachunk)
+                    megachunk=args.megachunk,
+                    xprof_dir=getattr(args, "xprof_dir", None),
+                    xprof_batches=getattr(args, "xprof_batches", 4))
     if args.resume:
         from wtf_tpu_torch.resume import load_campaign, restore_campaign
 
@@ -1344,6 +1371,23 @@ def cmd_status(args) -> int:
             return 0
 
 
+def cmd_lint(args) -> int:
+    """`lint`: the port's lint (wtf_tpu_torch/analysis), telemetry-wired
+    like every other subcommand — findings land in the registry
+    (`analysis.*`) and the JSONL stream."""
+    from wtf_tpu_torch.analysis import lint_main
+
+    families = args.families.split(",") if args.families else None
+    with _telemetry_for(args) as (registry, events):
+        return lint_main(families=families, budgets=args.budgets,
+                         rebaseline=args.rebaseline,
+                         allow_regression=args.allow_regression,
+                         as_json=args.json, deep=args.deep,
+                         sarif=str(args.sarif) if args.sarif else None,
+                         device=args.device,
+                         registry=registry, events=events)
+
+
 def cmd_snapshot(args) -> int:
     """Format conversion: npz <-> Windows crash dump both ways."""
     import json
@@ -1392,7 +1436,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         wlog.propagate = False
     return {"run": cmd_run, "campaign": cmd_campaign, "sched": cmd_sched,
             "triage": cmd_triage, "fuzz": cmd_fuzz, "master": cmd_master,
-            "fleet": cmd_fleet, "status": cmd_status,
+            "fleet": cmd_fleet, "status": cmd_status, "lint": cmd_lint,
             "snapshot": cmd_snapshot}[args.subcommand](args)
 
 

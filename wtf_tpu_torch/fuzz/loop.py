@@ -9,8 +9,9 @@ dispatch -> recover-and-replay wrapper) and crash-safe checkpoints
 the minset mode (`minset`, on the triage replay core), the fleet store
 (wtf_tpu_torch/fleet/store: finds and crashes journaled
 content-addressed, outputs/ and crashes/ their flat views) and the
-elastic reshard hook (`reshard_policy`, wtf_tpu_torch/fleet/elastic).
-The --xprof-dir profiler window is not part of it.
+elastic reshard hook (`reshard_policy`, wtf_tpu_torch/fleet/elastic)
+and the --xprof-dir profiler window (one torch.profiler window over
+steady-state batches, written as a Chrome trace).
 
 This is the single-process campaign loop — the reference needs a master
 process + N client processes even on one machine (README.md:34-110); here
@@ -159,6 +160,9 @@ class FuzzLoop:
         checkpoint_every: int = 0,
         store=None,
         megachunk: int = 0,
+        xprof_dir: Optional[Path] = None,
+        xprof_batches: int = 4,
+        xprof_skip: int = 2,
     ):
         self.backend = backend
         self.target = target
@@ -236,6 +240,23 @@ class FuzzLoop:
         # wrapper in run_one_batch; the ladder attaches lazily at the
         # first batch (the backend may not be initialized yet here)
         self.supervisor = getattr(backend, "supervisor", None)
+        # --xprof-dir: one torch.profiler window over N STEADY-STATE
+        # batches (the first `xprof_skip` are warm-up: the decode cache
+        # fills, the kernels load), CPU activity and, on a card, CUDA
+        # activity and the CPU-side stacks; written as a Chrome trace
+        # into the dir.  One window per campaign, for counts (kernels, K1,
+        # device-to-host copies) and the copies' call sites.  On a card
+        # the stack recording slows the window's batches by an order of
+        # magnitude, so its timings are the tracer's, not the campaign's:
+        # host share and batch times come from the span timeline
+        # (--trace-out) or an unprofiled run
+        self.xprof_dir = Path(xprof_dir) if xprof_dir else None
+        self.xprof_batches = int(xprof_batches)
+        self.xprof_skip = int(xprof_skip)
+        self._xprof = None
+        self._xprof_active = False
+        self._xprof_done = False
+        self._xprof_start_batch = 0
         if self.checkpoint_every and not hasattr(backend, "coverage_state"):
             # fail at construction, not at the first cadence hit deep
             # into a campaign (the checkpoint needs the batched backend's
@@ -417,8 +438,13 @@ class FuzzLoop:
             window = min(window, max(1, -(-int(remaining)
                                          // self.batch_size)))
         with spans.span("execute"):
-            batches = self.backend.run_megachunk(
-                self.mutator, self.target, self.megachunk, window)
+            # the mark draws the WHOLE window in the trace timeline
+            # (--trace-out): a trace-only mark, not a nested span, so the
+            # device wait keeps recording under the flat execute/device
+            # path the host-share accounting reads
+            with spans.trace_mark("megachunk-window"):
+                batches = self.backend.run_megachunk(
+                    self.mutator, self.target, self.megachunk, window)
         crashes = 0
         timeouts_before = self.stats.timeouts
         with spans.span("harvest"):
@@ -583,16 +609,94 @@ class FuzzLoop:
         --runs=0 to `minset` instead, matching the reference)."""
         self._runs_budget = runs
         self.reshard_to = None
-        while runs == 0 or self.stats.testcases < runs:
-            found = self.run_one_batch()
-            self.batches_done += 1
-            self._maybe_checkpoint()
-            if self._maybe_reshard():
-                break
-            self._heartbeat(print_stats)
-            if stop_on_crash and found:
-                break
+        try:
+            while runs == 0 or self.stats.testcases < runs:
+                self._maybe_xprof()
+                found = self.run_one_batch()
+                self.batches_done += 1
+                self._maybe_checkpoint()
+                if self._maybe_reshard():
+                    break
+                self._heartbeat(print_stats)
+                if stop_on_crash and found:
+                    break
+        finally:
+            self._stop_xprof()
         return self.stats
+
+    XPROF_TRACE = "xprof.pt.trace.json"
+
+    def _maybe_xprof(self) -> None:
+        """Arm/disarm the one profiler window at batch boundaries.
+        Best-effort: a profiler that cannot start logs once and the
+        campaign proceeds unprofiled."""
+        if self.xprof_dir is None or self._xprof_done:
+            return
+        if not self._xprof_active:
+            if self.batches_done < self.xprof_skip:
+                return
+            try:
+                from torch.profiler import ProfilerActivity, profile
+
+                on_card = self._sync_card()
+                activities = [ProfilerActivity.CPU]
+                if on_card:
+                    activities.append(ProfilerActivity.CUDA)
+                self.xprof_dir.mkdir(parents=True, exist_ok=True)
+                # the CPU-side stacks attribute the card's blocking
+                # copies to their call sites; on the CPU every op would
+                # carry one (gigabytes of trace for a few batches)
+                self._xprof = profile(activities=activities,
+                                      with_stack=on_card)
+                self._xprof.start()
+            except Exception as e:  # noqa: BLE001 - profiler is optional
+                import logging
+
+                logging.getLogger(__name__).warning(
+                    "xprof trace unavailable: %s", e)
+                self.events.emit("error", kind="xprof-start",
+                                 detail=str(e))
+                self._xprof = None
+                self._xprof_done = True
+                return
+            self._xprof_active = True
+            self._xprof_start_batch = self.batches_done
+            self.events.emit("xprof-start", batch=self.batches_done,
+                             dir=str(self.xprof_dir))
+            return
+        if (self.batches_done
+                >= self._xprof_start_batch + self.xprof_batches):
+            self._stop_xprof()
+
+    def _sync_card(self) -> bool:
+        """Wait for the backend's card, so a window's edges fall between
+        batches on the device too; False on the CPU."""
+        device = getattr(getattr(self.backend, "runner", None), "device",
+                         None)
+        if getattr(device, "type", "cpu") != "cuda":
+            return False
+        import torch
+
+        torch.cuda.synchronize(device)
+        return True
+
+    def _stop_xprof(self) -> None:
+        if not self._xprof_active:
+            return
+        self._xprof_active = False
+        self._xprof_done = True
+        prof, self._xprof = self._xprof, None
+        try:
+            self._sync_card()
+            prof.stop()
+            prof.export_chrome_trace(str(self.xprof_dir / self.XPROF_TRACE))
+        except Exception as e:  # noqa: BLE001
+            self.events.emit("error", kind="xprof-stop", detail=str(e))
+            return
+        self.events.emit("xprof-stop", batch=self.batches_done,
+                         batches=self.batches_done
+                         - self._xprof_start_batch,
+                         dir=str(self.xprof_dir))
 
     def _maybe_reshard(self) -> bool:
         """The elastic-campaign policy hook (wtf_tpu_torch/fleet/elastic):

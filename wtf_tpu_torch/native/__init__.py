@@ -1,9 +1,10 @@
 """Native (C++) host components and their build-on-demand loader.
 
 The counterpart of wtf_tpu/native/: the mangle engine (`mangle.cc`, the
-host mutator of fuzz/native_mutator.py) and the crash-dump parser
-(`kdmp.cc`, the fast path of snapshot/kdmp.py), both byte-identical copies
-of the JAX package's sources.  Binaries build with g++ into
+host mutator of fuzz/native_mutator.py), the crash-dump parser
+(`kdmp.cc`, the fast path of snapshot/kdmp.py) and the bench's host
+interpreter (`bochsref.cc`, bound by native/bochsref.py), byte-identical
+copies of the JAX package's sources.  Binaries build with g++ into
 `wtf_tpu_torch/_build/` at first use.  Every native component has a
 pure-Python fallback, so the package still works without a compiler: the
 native path is the fast path, not a hard dependency.

@@ -1,0 +1,668 @@
+"""Summarize a telemetry events.jsonl (the --telemetry-dir stream).
+
+The port's copy of tools/telemetry_report.py, reading the port's
+counters and spans (`python -m wtf_tpu_torch.telemetry.report DIR`).
+
+Answers the operator questions the raw stream buries:
+  - where did the wall-clock go?  per-phase span totals (top-level phases
+    accounted against wall-clock, nested phases shown as a breakdown)
+  - how fast was it?  testcases/s from the campaign counters
+  - why did lanes leave the device?  fallback rate per opclass
+  - what did the device itself count?  instructions retired / memory
+    faults / decode misses from the in-graph counter block
+  - what happened?  event census (crashes, new coverage, errors)
+  - the fleet (`fleet.*`/`dist.*`), triage (`triage.*`) and tenant
+    (`tenant.*`) sections, when the run counted any
+
+Usage: python -m wtf_tpu_torch.telemetry.report <events.jsonl | telemetry dir> [--json]
+
+Exit status 1 when the file holds no usable records.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+from pathlib import Path
+
+from wtf_tpu_torch.telemetry.events import read_events
+from wtf_tpu_torch.telemetry.spans import DEVICE_SPAN_LEAVES
+
+
+def wall_breakdown(phase_seconds: dict) -> dict:
+    """Host-busy vs device-busy split of the top-level phases: for each
+    phase, device seconds = the fenced device spans nested under it,
+    host seconds = the remainder.  This is what makes the devmut
+    double-buffer claim measurable from an events.jsonl — with
+    mutate-on-device, `mutate.host_seconds` collapses to dispatch
+    overhead and the generation wait shows under mutate/device."""
+    top = {name: secs for name, secs in phase_seconds.items()
+           if "/" not in name}
+    device_by_top: dict = {}
+    for path, secs in phase_seconds.items():
+        parts = path.split("/")
+        if len(parts) > 1 and parts[-1] in DEVICE_SPAN_LEAVES:
+            device_by_top[parts[0]] = device_by_top.get(parts[0], 0.0) + secs
+    by_phase = {}
+    host_total = device_total = 0.0
+    for name, secs in sorted(top.items(), key=lambda kv: -kv[1]):
+        dev = min(device_by_top.get(name, 0.0), secs)
+        by_phase[name] = {"seconds": round(secs, 4),
+                          "device_seconds": round(dev, 4),
+                          "host_seconds": round(secs - dev, 4)}
+        host_total += secs - dev
+        device_total += dev
+    return {
+        "host_busy_seconds": round(host_total, 4),
+        "device_busy_seconds": round(device_total, 4),
+        "by_phase": by_phase,
+    }
+
+
+def summarize(path) -> dict:
+    """Machine-readable summary of one events.jsonl."""
+    path = Path(path)
+    if path.is_dir():
+        path = path / "events.jsonl"
+    records = list(read_events(path))
+    if not records:
+        return {"error": f"no records in {path}"}
+
+    # EventLog appends, so re-running with the same --telemetry-dir stacks
+    # runs in one file.  Metrics dumps are per-run (the registry is fresh
+    # each invocation), so summarize the LATEST run: slice at its
+    # run-start, or wall-clock/rates would span the gap between runs.
+    starts = [i for i, r in enumerate(records) if r["type"] == "run-start"]
+    runs_in_file = max(len(starts), 1)
+    if starts:
+        records = records[starts[-1]:]
+
+    first_ts = records[0]["ts"]
+    last_ts = records[-1]["ts"]
+    wall = max(last_ts - first_ts, 0.0)
+
+    # the freshest full metrics dump (run-end normally; the last
+    # heartbeat when the run was killed)
+    metrics = {}
+    for rec in reversed(records):
+        if "metrics" in rec:
+            metrics = rec["metrics"]
+            break
+
+    by_type: dict = {}
+    crashes: dict = {}
+    errors = []
+    compiles_by_shape: dict = {}
+    checkpoint_bytes: list = []
+    checkpoint_secs: list = []
+    for rec in records:
+        by_type[rec["type"]] = by_type.get(rec["type"], 0) + 1
+        if rec["type"] == "crash" and rec.get("name"):
+            crashes[rec["name"]] = crashes.get(rec["name"], 0) + 1
+        elif rec["type"] == "error":
+            errors.append({k: rec.get(k) for k in ("kind", "detail")})
+        elif rec["type"] == "checkpoint":
+            checkpoint_bytes.append(rec.get("bytes", 0))
+            checkpoint_secs.append(rec.get("seconds", 0.0))
+        elif rec["type"] == "compile":
+            # one executor "shape" = the compile event's own payload
+            # (chunk_steps/donate/kind/...) minus the stream bookkeeping
+            shape = ",".join(
+                f"{k}={rec[k]}" for k in sorted(rec)
+                if k not in ("ts", "seq", "type"))
+            compiles_by_shape[shape] = compiles_by_shape.get(shape, 0) + 1
+    # >1 compile for one executor shape means the jit cache churned (a
+    # weak-type/python-scalar signature split, or an executor rebuilt
+    # past the process-global dispatch dedup) — wall-clock silently lost
+    compile_shape_churn = {shape: n for shape, n in compiles_by_shape.items()
+                           if n > 1}
+
+    phase_seconds = metrics.get("phase.seconds", {}) or {}
+    if not isinstance(phase_seconds, dict):
+        phase_seconds = {}
+    top = {name: secs for name, secs in phase_seconds.items()
+           if "/" not in name}
+    top_total = sum(top.values())
+    phases = {
+        name: {"seconds": round(secs, 4),
+               "share_of_wall": round(secs / wall, 4) if wall else None}
+        for name, secs in sorted(top.items(), key=lambda kv: -kv[1])
+    }
+    nested = {name: round(secs, 4)
+              for name, secs in sorted(phase_seconds.items())
+              if "/" in name}
+    breakdown = wall_breakdown(phase_seconds)
+
+    # mesh campaigns (wtf_tpu_torch/meshrun): per-shard device counters next to
+    # the merged view — the operator's straggling/cold-chip check is
+    # "do the shards sum to the merged counter, and are they balanced"
+    mesh = None
+    if metrics.get("mesh.devices"):
+        shard_instr = metrics.get("device.shard_instructions", {})
+        if not isinstance(shard_instr, dict):
+            shard_instr = {}
+        per_shard = dict(sorted(shard_instr.items(),
+                                key=lambda kv: int(kv[0])))
+        mesh = {
+            "devices": metrics.get("mesh.devices"),
+            "lanes_per_shard": metrics.get("mesh.lanes_per_shard"),
+            "shard_instructions": per_shard,
+            "shard_instructions_sum": sum(per_shard.values()),
+            "merged_instructions": metrics.get("device.instructions", 0),
+        }
+
+    # triage (wtf_tpu_torch/triage): candidate volume and what it bought —
+    # dispatches per minimization, bytes removed, minset before/after.
+    # None when the run did no triage work.
+    triage = None
+    tri_signals = {
+        "candidates": metrics.get("triage.candidates", 0) or 0,
+        "dispatches": metrics.get("triage.dispatches", 0) or 0,
+        "crashes_replayed": metrics.get("triage.crashes", 0) or 0,
+        "minimizations": metrics.get("triage.minimizations", 0) or 0,
+        "minimize_rounds": metrics.get("triage.minimize_rounds", 0) or 0,
+        "bytes_removed": metrics.get("triage.bytes_removed", 0) or 0,
+        "minset_before": metrics.get("triage.minset_before", 0) or 0,
+        "minset_after": metrics.get("triage.minset_after", 0) or 0,
+        "captures": metrics.get("triage.captures", 0) or 0,
+    }
+    if any(tri_signals.values()):
+        triage = dict(tri_signals)
+        if tri_signals["minimizations"]:
+            triage["dispatches_per_minimization"] = round(
+                tri_signals["dispatches"] / tri_signals["minimizations"], 2)
+        if wall and tri_signals["candidates"]:
+            triage["candidates_per_s"] = round(
+                tri_signals["candidates"] / wall, 2)
+
+    # multi-tenant campaigns (wtf_tpu_torch/tenancy): one block per tenant off
+    # the `tenant.<name>.*` namespaces — execs/s, new-coverage, crash
+    # buckets (from tenant-tagged crash events), lane-seconds — plus the
+    # scheduler's round/preemption census.  None when the run had no
+    # tenants.
+    tenants = None
+    tenant_names = sorted({name.split(".")[1] for name in metrics
+                           if name.startswith("tenant.")
+                           and len(name.split(".")) >= 3})
+    if tenant_names:
+        buckets_by_tenant: dict = {}
+        for rec in records:
+            if rec["type"] == "crash" and rec.get("tenant"):
+                b = buckets_by_tenant.setdefault(rec["tenant"], {})
+                key = rec.get("bucket") or rec.get("name") or "?"
+                b[key] = b.get(key, 0) + 1
+        per_tenant = {}
+        for name in tenant_names:
+            def tm(field, default=0):
+                return metrics.get(f"tenant.{name}.{field}", default) or 0
+
+            execs = tm("testcases")
+            per_tenant[name] = {
+                "testcases": execs,
+                "testcases_per_s": (round(execs / wall, 2)
+                                    if wall else None),
+                "crashes": tm("crashes"),
+                "crash_buckets": dict(sorted(
+                    buckets_by_tenant.get(name, {}).items())),
+                "new_coverage": tm("new_coverage"),
+                "timeouts": tm("timeouts"),
+                "batches": tm("batches"),
+                "lane_seconds": round(tm("lane_ms") / 1000.0, 3),
+                "checkpoints": tm("checkpoints"),
+                "resumes": tm("resumes"),
+            }
+        tenants = {"by_tenant": per_tenant}
+        sched = {key: metrics.get(f"sched.{key}", 0) or 0
+                 for key in ("rounds", "placements", "preemptions",
+                             "completions")}
+        if any(sched.values()):
+            tenants["sched"] = sched
+
+    # resilience (fault-tolerance tier): reconnect/reclaim/resume
+    # activity + checkpoint cadence and cost.  None when the run had no
+    # fault-tolerance signal at all — quiet campaigns stay quiet.
+    resilience = None
+    res_signals = {
+        "retries": metrics.get("dist.retries", 0) or 0,
+        "reconnects": by_type.get("reconnect", 0),
+        "reclaimed_testcases": metrics.get("dist.reclaimed", 0) or 0,
+        "resumes": metrics.get("campaign.resumes", 0) or 0,
+        "checkpoints": metrics.get("campaign.checkpoints", 0) or 0,
+        "drains": by_type.get("drain", 0),
+    }
+    if any(res_signals.values()) or checkpoint_bytes:
+        phase_secs = metrics.get("phase.seconds", {}) or {}
+        resilience = dict(res_signals)
+        resilience["checkpoint_seconds_total"] = round(
+            phase_secs.get("checkpoint", 0.0)
+            if isinstance(phase_secs, dict) else 0.0, 4)
+        if checkpoint_bytes:
+            resilience["checkpoint_last_bytes"] = checkpoint_bytes[-1]
+            resilience["checkpoint_mean_seconds"] = round(
+                sum(checkpoint_secs) / len(checkpoint_secs), 4)
+
+    # device resilience (wtf_tpu_torch/supervise): what the self-healing
+    # runtime did — watchdog fires, device errors, backend rebuilds,
+    # batch replays, ladder movement, quarantined lanes — plus what the
+    # always-on machinery cost (snapshot + integrity + recovery span
+    # seconds against wall).  None when the run was unsupervised.
+    device_res = None
+    sup_signals = {
+        "supervised_dispatches": metrics.get("supervise.dispatches", 0) or 0,
+        "watchdog_fires": metrics.get("supervise.watchdog_fires", 0) or 0,
+        "device_errors": metrics.get("supervise.device_errors", 0) or 0,
+        "rebuilds": metrics.get("supervise.rebuilds", 0) or 0,
+        "batch_retries": metrics.get("supervise.batch_retries", 0) or 0,
+        "degradations": metrics.get("supervise.degradations", 0) or 0,
+        "promotions": metrics.get("supervise.promotions", 0) or 0,
+        "poisoned_lanes": metrics.get("supervise.poisoned_lanes", 0) or 0,
+        "quarantined_total": metrics.get("device.quarantined", 0) or 0,
+        "integrity_checks": metrics.get("supervise.integrity_checks",
+                                        0) or 0,
+    }
+    if any(sup_signals.values()):
+        device_res = dict(sup_signals)
+        # gauges: final rung index (0 = full speed) and lanes still
+        # quarantined at dump time (vs the lifetime quarantined_total)
+        device_res["final_rung"] = metrics.get("supervise.rung", 0) or 0
+        device_res["quarantined_now"] = metrics.get(
+            "supervise.quarantined_lanes", 0) or 0
+        # supervisor cost: snapshot/integrity/recover spans wherever they
+        # nest in the phase tree.  overhead_share folds in only the
+        # steady-state legs (snapshot + integrity); recovery seconds are
+        # fault-path work and reported separately.
+        sup_leaves = {"integrity": 0.0, "supervise-snapshot": 0.0,
+                      "supervise-recover": 0.0}
+        for span_path, secs in phase_seconds.items():
+            leaf = span_path.split("/")[-1]
+            if leaf in sup_leaves:
+                sup_leaves[leaf] += secs
+        device_res["integrity_seconds"] = round(sup_leaves["integrity"], 4)
+        device_res["snapshot_seconds"] = round(
+            sup_leaves["supervise-snapshot"], 4)
+        device_res["recover_seconds"] = round(
+            sup_leaves["supervise-recover"], 4)
+        steady = sup_leaves["integrity"] + sup_leaves["supervise-snapshot"]
+        device_res["overhead_share"] = (round(steady / wall, 4)
+                                        if wall else None)
+
+    # fleet (distribution tier): streaming-delta wire savings, store
+    # dedup activity, crash bucket-dedup rate, elastic reshards.  None
+    # when the run produced no fleet signal.
+    fleet = None
+    delta_bytes = metrics.get("dist.cov_bytes_delta", 0) or 0
+    bitmap_bytes = metrics.get("dist.cov_bytes_bitmap", 0) or 0
+    fleet_signals = {
+        "delta_frames": metrics.get("fleet.delta_frames", 0) or 0,
+        "full_resyncs": metrics.get("fleet.full_resyncs", 0) or 0,
+        "cursor_resumes": metrics.get("fleet.cursor_resumes", 0) or 0,
+        "coverage_writes": metrics.get("fleet.coverage_writes", 0) or 0,
+        "store_puts": metrics.get("fleet.store_puts", 0) or 0,
+        "store_dedup_hits": metrics.get("fleet.store_dedup", 0) or 0,
+        "bucket_dedup_hits": metrics.get("fleet.bucket_dedup", 0) or 0,
+        "reshards": metrics.get("campaign.reshards", 0) or 0,
+    }
+    if any(fleet_signals.values()) or delta_bytes:
+        fleet = dict(fleet_signals)
+        fleet["cov_bytes_delta"] = delta_bytes
+        fleet["cov_bytes_bitmap_equiv"] = bitmap_bytes
+        fleet["cov_bytes_saved"] = max(bitmap_bytes - delta_bytes, 0)
+        fleet["delta_ratio"] = (round(bitmap_bytes / delta_bytes, 1)
+                                if delta_bytes else None)
+        crashes_seen = ((metrics.get("campaign.crashes", 0) or 0)
+                        or fleet["bucket_dedup_hits"])
+        fleet["bucket_dedup_rate"] = (
+            round(fleet["bucket_dedup_hits"] / crashes_seen, 4)
+            if crashes_seen else None)
+
+    # device-resident decode (interp/devdec): the zero-host steady
+    # state.  published = entries the in-graph decoder committed,
+    # cross-checked entry-by-entry against the host oracle at harvest
+    # (mismatches MUST read 0 — any other value is a decoder bug, not
+    # noise).  zero-host windows are megachunk windows that completed
+    # without a single host decode service; their mean length in batches
+    # says how long the device runs untouched.  harvest_overlap_share is
+    # the fraction of windows whose successor was speculatively
+    # prelaunched AND adopted, i.e. readback hidden behind execution.
+    # None when the run never exercised device decode.
+    devdecode = None
+    dd_signals = {
+        "published": metrics.get("devdec.published", 0) or 0,
+        "serviced_lanes": metrics.get("devdec.serviced_lanes", 0) or 0,
+        "parked_lanes": metrics.get("devdec.parked_lanes", 0) or 0,
+        "service_rounds": metrics.get("devdec.service_rounds", 0) or 0,
+        "zero_host_windows": metrics.get("devdec.zero_host_windows",
+                                         0) or 0,
+        "zero_host_batches": metrics.get("devdec.zero_host_batches",
+                                         0) or 0,
+    }
+    if any(dd_signals.values()):
+        devdecode = dict(dd_signals)
+        devdecode["crosscheck_mismatches"] = metrics.get(
+            "devdec.crosscheck_mismatches", 0) or 0
+        # host decode services that still happened (parked encodings
+        # serviced in-order by the authoritative host decoder); 0 is the
+        # acceptance target for the demo workloads
+        devdecode["host_decode_services"] = metrics.get(
+            "runner.decodes", 0) or 0
+        devdecode["zero_host_mean_batches"] = (
+            round(devdecode["zero_host_batches"]
+                  / devdecode["zero_host_windows"], 1)
+            if devdecode["zero_host_windows"] else None)
+        mega_windows = metrics.get("megachunk.windows", 0) or 0
+        devdecode["windows"] = mega_windows
+        devdecode["prelaunched"] = metrics.get("megachunk.prelaunched",
+                                               0) or 0
+        devdecode["prelaunch_hits"] = metrics.get(
+            "megachunk.prelaunch_hits", 0) or 0
+        devdecode["prelaunch_dropped"] = metrics.get(
+            "megachunk.prelaunch_dropped", 0) or 0
+        devdecode["harvest_overlap_share"] = (
+            round(devdecode["prelaunch_hits"] / mega_windows, 4)
+            if mega_windows else None)
+        # the steady-state headline, as one number (also live on
+        # the heartbeat line as `zh:` and in `wtf-tpu status`)
+        devdecode["zero_host_window_rate"] = (
+            round(devdecode["zero_host_windows"] / mega_windows, 4)
+            if mega_windows else None)
+
+    testcases = metrics.get("campaign.testcases", 0) or 0
+    fallbacks = metrics.get("runner.fallbacks_by_opclass", {})
+    if not isinstance(fallbacks, dict):
+        fallbacks = {}
+    # without a testcase counter (run-subcommand streams) the values are
+    # raw counts, and fallback_rate_unit says so — never pass counts off
+    # as per-testcase rates
+    fallback_rate_unit = "per-testcase" if testcases else "raw-count"
+    fallback_rate = {
+        opclass: round(count / testcases, 4) if testcases else count
+        for opclass, count in sorted(fallbacks.items(), key=lambda kv: -kv[1])
+    }
+
+    return {
+        "path": str(path),
+        "records": len(records),
+        "runs_in_file": runs_in_file,
+        "events_by_type": by_type,
+        "wall_seconds": round(wall, 3),
+        "phases": phases,
+        "phase_accounted_frac": round(top_total / wall, 4) if wall else None,
+        "nested_phases": nested,
+        "wall_breakdown": breakdown,
+        "testcases": testcases,
+        "testcases_per_s": round(testcases / wall, 2) if wall else None,
+        "compiles": {"total": sum(compiles_by_shape.values()),
+                     "by_shape": dict(sorted(compiles_by_shape.items()))},
+        "compile_shape_churn": dict(sorted(compile_shape_churn.items())),
+        "crashes": metrics.get("campaign.crashes", 0),
+        "crash_names": crashes,
+        "new_coverage": metrics.get("campaign.new_coverage", 0),
+        "fallbacks": metrics.get("runner.fallbacks", 0),
+        "fallback_rate_unit": fallback_rate_unit,
+        "fallback_rate_per_opclass": fallback_rate,
+        "device": {
+            "instructions": metrics.get("device.instructions", 0),
+            "mem_faults": metrics.get("device.mem_faults", 0),
+            "decode_misses": metrics.get("device.decode_misses", 0),
+            "fused_steps": metrics.get("device.fused_steps", 0),
+            # fraction of retired instructions executed inside the fused
+            # Pallas kernel (interp/pstep.py); null when the fast path
+            # never ran, so 0% occupancy can't be confused with "off".
+            # "ran" is detected by the pallas-step span, not the counter:
+            # a fused campaign whose every lane parks each round must
+            # read as the actionable 0.0, not as null
+            "fused_occupancy": (
+                round(metrics.get("device.fused_steps", 0)
+                      / metrics["device.instructions"], 4)
+                if metrics.get("device.instructions")
+                and (metrics.get("device.fused_steps", 0) > 0
+                     or any(path.split("/")[-1] == "pallas-step"
+                            for path in (metrics.get("phase.seconds")
+                                         or {})))
+                else None),
+            # WHY lanes left the kernel (interp/pstep.py park split):
+            # subset = cold opclass / armed bp / SMC-risk code window,
+            # mem = failing/unwritable walk or overlay-slot exhaustion
+            # mid-window — one opaque number used to hide the reason
+            "fused_park_subset": metrics.get("device.fused_park_subset",
+                                             0),
+            "fused_park_mem": metrics.get("device.fused_park_mem", 0),
+            # fused megachunk windows (fuzz/megachunk.py fused=True):
+            # in-window quiesce dispatch split — Pallas kernel rounds vs
+            # XLA ladder/resume sweeps — and the machine/overlay bytes
+            # donation kept from copying through the kernel per dispatch
+            "fused_window_rounds": metrics.get(
+                "device.fused_window_rounds", 0),
+            "fused_window_xla_steps": metrics.get(
+                "device.fused_window_xla_steps", 0),
+            "fused_window_share": (
+                round(metrics.get("device.fused_window_rounds", 0)
+                      / (metrics.get("device.fused_window_rounds", 0)
+                         + metrics.get("device.fused_window_xla_steps",
+                                       0)), 4)
+                if metrics.get("device.fused_window_rounds", 0) else None),
+            "fused_window_bytes_saved": metrics.get(
+                "device.fused_window_bytes_saved", 0),
+        },
+        "mesh": mesh,
+        "triage": triage,
+        "tenants": tenants,
+        "resilience": resilience,
+        "device_resilience": device_res,
+        "fleet": fleet,
+        "device_decode": devdecode,
+        "errors": errors,
+    }
+
+
+def _print_human(s: dict) -> None:
+    extra = (f" (latest of {s['runs_in_file']} runs in file)"
+             if s["runs_in_file"] > 1 else "")
+    print(f"{s['path']}: {s['records']} records over "
+          f"{s['wall_seconds']}s{extra}")
+    print(f"events: " + ", ".join(
+        f"{t}={n}" for t, n in sorted(s["events_by_type"].items())))
+    if s["phases"]:
+        acct = s["phase_accounted_frac"]
+        print(f"phases (top-level, "
+              f"{acct * 100:.1f}% of wall accounted):" if acct is not None
+              else "phases:")
+        for name, d in s["phases"].items():
+            share = (f" ({d['share_of_wall'] * 100:5.1f}%)"
+                     if d["share_of_wall"] is not None else "")
+            print(f"  {name:<16} {d['seconds']:>10.3f}s{share}")
+        for name, secs in s["nested_phases"].items():
+            print(f"    {name:<24} {secs:>8.3f}s")
+    wb = s.get("wall_breakdown") or {}
+    if wb.get("by_phase"):
+        print(f"host-busy vs device-busy: "
+              f"{wb['host_busy_seconds']}s host / "
+              f"{wb['device_busy_seconds']}s device")
+        for name, d in wb["by_phase"].items():
+            print(f"  {name:<16} host {d['host_seconds']:>9.3f}s  "
+                  f"device {d['device_seconds']:>9.3f}s")
+    print(f"testcases: {s['testcases']}"
+          + (f" ({s['testcases_per_s']}/s)" if s["testcases_per_s"] else ""))
+    if s["compiles"]["total"]:
+        print(f"compiles: {s['compiles']['total']} executor(s)")
+        for shape, n in s["compiles"]["by_shape"].items():
+            print(f"  {shape} x{n}")
+        for shape, n in s["compile_shape_churn"].items():
+            print(f"  warning: shape-churn — {shape} compiled {n}x "
+                  f"(expected 1 per executor shape)")
+    print(f"crashes: {s['crashes']} new-coverage: {s['new_coverage']}")
+    if s["crash_names"]:
+        for name, n in sorted(s["crash_names"].items()):
+            print(f"  {name} x{n}")
+    if s["fallback_rate_per_opclass"]:
+        label = ("fallback rate per opclass (fallbacks/testcase):"
+                 if s["fallback_rate_unit"] == "per-testcase"
+                 else "fallbacks per opclass (raw counts — no testcase "
+                      "counter in this stream):")
+        print(label)
+        for opclass, rate in s["fallback_rate_per_opclass"].items():
+            print(f"  {opclass:<12} {rate}")
+    dev = s["device"]
+    fused = (f" fused_steps={dev['fused_steps']}"
+             f" (occupancy {dev['fused_occupancy'] * 100:.1f}%; parks "
+             f"subset={dev.get('fused_park_subset', 0)} "
+             f"mem={dev.get('fused_park_mem', 0)})"
+             if dev.get("fused_occupancy") is not None else "")
+    print(f"device counters: instructions={dev['instructions']} "
+          f"mem_faults={dev['mem_faults']} "
+          f"decode_misses={dev['decode_misses']}{fused}")
+    if dev.get("fused_window_share") is not None:
+        total = (dev["fused_window_rounds"]
+                 + dev["fused_window_xla_steps"])
+        print(f"  fused windows: {dev['fused_window_share'] * 100:.1f}% "
+              f"of {total} quiesce dispatches in-kernel "
+              f"({dev['fused_window_rounds']} pallas, "
+              f"{dev['fused_window_xla_steps']} ladder sweeps)")
+        saved = dev.get("fused_window_bytes_saved", 0)
+        if saved:
+            print(f"  donation: {saved / (1 << 20):.1f} MiB "
+                  f"copy-through saved "
+                  f"({saved // max(dev['fused_window_rounds'], 1)} "
+                  f"B/dispatch)")
+    mesh = s.get("mesh")
+    if mesh:
+        print(f"mesh: {mesh['devices']} devices x "
+              f"{mesh['lanes_per_shard']} lanes/shard")
+        shards = mesh["shard_instructions"]
+        if shards:
+            per = " ".join(f"{k}={v}" for k, v in shards.items())
+            agree = ("" if mesh["shard_instructions_sum"]
+                     == mesh["merged_instructions"]
+                     else f" (merged view {mesh['merged_instructions']} "
+                          "DISAGREES)")
+            print(f"  per-shard instructions: {per} "
+                  f"(sum {mesh['shard_instructions_sum']}{agree})")
+    tri = s.get("triage")
+    if tri:
+        per_min = (f" ({tri['dispatches_per_minimization']} "
+                   "dispatches/minimization)"
+                   if "dispatches_per_minimization" in tri else "")
+        rate = (f" ({tri['candidates_per_s']}/s)"
+                if "candidates_per_s" in tri else "")
+        print(f"triage: candidates={tri['candidates']}{rate} "
+              f"dispatches={tri['dispatches']}{per_min} "
+              f"crashes={tri['crashes_replayed']}")
+        if tri["minimizations"]:
+            print(f"  minimize: {tri['minimizations']} run(s), "
+                  f"{tri['minimize_rounds']} rounds, "
+                  f"{tri['bytes_removed']} bytes removed")
+        if tri["minset_before"]:
+            print(f"  distill: minset {tri['minset_before']} -> "
+                  f"{tri['minset_after']} seeds")
+        if tri["captures"]:
+            print(f"  vbreak: {tri['captures']} captures")
+    ten = s.get("tenants")
+    if ten:
+        sched = ten.get("sched")
+        line = "tenants:"
+        if sched:
+            line += (f" (sched: {sched['rounds']} rounds, "
+                     f"{sched['placements']} placements, "
+                     f"{sched['preemptions']} preemptions, "
+                     f"{sched['completions']} completions)")
+        print(line)
+        for name, d in ten["by_tenant"].items():
+            rate = (f" ({d['testcases_per_s']}/s)"
+                    if d["testcases_per_s"] else "")
+            print(f"  {name:<12} execs={d['testcases']}{rate} "
+                  f"newcov={d['new_coverage']} "
+                  f"crashes={d['crashes']} "
+                  f"buckets={len(d['crash_buckets'])} "
+                  f"batches={d['batches']} "
+                  f"lane-s={d['lane_seconds']} "
+                  f"ckpt={d['checkpoints']}/{d['resumes']}")
+    res = s.get("resilience")
+    if res:
+        ckpt = (f", checkpoints={res['checkpoints']} "
+                f"({res['checkpoint_seconds_total']}s total"
+                + (f", last {res['checkpoint_last_bytes']}B, "
+                   f"mean {res['checkpoint_mean_seconds']}s"
+                   if "checkpoint_last_bytes" in res else "") + ")")
+        print(f"resilience: retries={res['retries']} "
+              f"reconnects={res['reconnects']} "
+              f"reclaimed={res['reclaimed_testcases']} "
+              f"resumes={res['resumes']} drains={res['drains']}{ckpt}")
+    dres = s.get("device_resilience")
+    if dres:
+        share = (f"{dres['overhead_share'] * 100:.2f}%"
+                 if dres.get("overhead_share") is not None else "n/a")
+        print(f"device resilience: rung={dres['final_rung']} "
+              f"watchdog={dres['watchdog_fires']} "
+              f"errors={dres['device_errors']} "
+              f"rebuilds={dres['rebuilds']} "
+              f"retries={dres['batch_retries']} "
+              f"ladder={dres['degradations']}v/{dres['promotions']}^ "
+              f"quarantined={dres['quarantined_now']} "
+              f"(lifetime {dres['quarantined_total']}, "
+              f"poison events {dres['poisoned_lanes']})")
+        print(f"  supervisor cost: {share} of wall steady-state "
+              f"(integrity {dres['integrity_seconds']}s over "
+              f"{dres['integrity_checks']} checks, "
+              f"snapshot {dres['snapshot_seconds']}s) "
+              f"+ recovery {dres['recover_seconds']}s")
+    flt = s.get("fleet")
+    if flt:
+        ratio = (f"{flt['delta_ratio']}x"
+                 if flt.get("delta_ratio") is not None else "n/a")
+        print(f"fleet: delta-frames={flt['delta_frames']} "
+              f"cov-bytes saved={flt['cov_bytes_saved']} "
+              f"(delta {ratio} smaller, "
+              f"full-resyncs={flt['full_resyncs']}, "
+              f"cursor-resumes={flt['cursor_resumes']}) "
+              f"store puts={flt['store_puts']} "
+              f"dedup={flt['store_dedup_hits']} "
+              f"bucket-dedup={flt['bucket_dedup_hits']} "
+              f"reshards={flt['reshards']}")
+    ddc = s.get("device_decode")
+    if ddc:
+        check = ("clean" if ddc["crosscheck_mismatches"] == 0
+                 else f"{ddc['crosscheck_mismatches']} MISMATCHES")
+        mean = (f", mean {ddc['zero_host_mean_batches']} batches"
+                if ddc.get("zero_host_mean_batches") is not None else "")
+        rate = (f" ({ddc['zero_host_window_rate'] * 100:.0f}% zero-host)"
+                if ddc.get("zero_host_window_rate") is not None else "")
+        overlap = (f"{ddc['harvest_overlap_share'] * 100:.1f}%"
+                   if ddc.get("harvest_overlap_share") is not None
+                   else "n/a")
+        print(f"device decode: published={ddc['published']} "
+              f"(cross-check {check}) "
+              f"serviced={ddc['serviced_lanes']} "
+              f"parked={ddc['parked_lanes']} "
+              f"rounds={ddc['service_rounds']} "
+              f"host-services={ddc['host_decode_services']}")
+        print(f"  zero-host windows: {ddc['zero_host_windows']}"
+              f"/{ddc['windows']}{rate}{mean}; harvest overlap {overlap} "
+              f"(prelaunched {ddc['prelaunched']}, "
+              f"adopted {ddc['prelaunch_hits']}, "
+              f"dropped {ddc['prelaunch_dropped']})")
+    for err in s["errors"]:
+        print(f"error: {err['kind']}: {err['detail']}")
+
+
+def main(argv) -> int:
+    args = [a for a in argv if not a.startswith("--")]
+    if not args:
+        print(__doc__.strip(), file=sys.stderr)
+        return 1
+    summary = summarize(args[0])
+    if "error" in summary:
+        print(summary["error"], file=sys.stderr)
+        return 1
+    if "--json" in argv:
+        print(json.dumps(summary))
+    else:
+        _print_human(summary)
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main(sys.argv[1:]))
+    except BrokenPipeError:
+        # `... | head` closed the pipe: normal operator usage, not an error
+        sys.exit(0)

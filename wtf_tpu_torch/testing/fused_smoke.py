@@ -27,7 +27,7 @@ import sys
 import numpy as np
 
 
-def _occupancy_leg(device) -> None:
+def _occupancy_leg(device) -> str:
     from wtf_tpu_torch.analysis.trace import build_tlv_runner
     from wtf_tpu_torch.interp.machine import (
         CTR_FUSED, CTR_INSTR, CTR_PARK_MEM, CTR_PARK_SUBSET,
@@ -41,14 +41,16 @@ def _occupancy_leg(device) -> None:
     instr = int(ctr[:, CTR_INSTR].sum())
     fused = int(ctr[:, CTR_FUSED].sum())
     occ = fused / max(instr, 1)
-    print(f"[fused-smoke] occupancy {occ:.4f} "
-          f"({fused}/{instr} in-kernel; parks "
-          f"subset={int(ctr[:, CTR_PARK_SUBSET].sum())} "
-          f"mem={int(ctr[:, CTR_PARK_MEM].sum())})")
+    line = (f"[fused-smoke] occupancy {occ:.4f} "
+            f"({fused}/{instr} in-kernel; parks "
+            f"subset={int(ctr[:, CTR_PARK_SUBSET].sum())} "
+            f"mem={int(ctr[:, CTR_PARK_MEM].sum())})")
+    print(line)
     assert instr > 1000, "demo_tlv hot loop barely ran"
     assert occ >= 0.95, (
         f"fused occupancy {occ:.4f} < 0.95 — the memory subset "
         f"regressed out of the kernel (check the park split above)")
+    return line
 
 
 def smoke_campaign(device, **kw):
@@ -84,12 +86,17 @@ def window_campaign(device, runs: int, **kw):
     return loop, fingerprint(loop)
 
 
+def window_fingerprint(device, runs: int, **kw) -> dict:
+    """window_campaign's fingerprint alone."""
+    return window_campaign(device, runs, **kw)[1]
+
+
 def _megachunk_leg(device) -> None:
     # 8 batches, not a cold-cache handful: finds must land in batches
     # inside a window so the find-stop slab schedule (the seam where
     # parity can skew) is actually exercised
-    _, legacy = window_campaign(device, 4 * 8, megachunk=0)
-    _, windowed = window_campaign(device, 4 * 8, megachunk=3)
+    legacy = window_fingerprint(device, 4 * 8, megachunk=0)
+    windowed = window_fingerprint(device, 4 * 8, megachunk=3)
     for key in legacy:
         assert windowed[key] == legacy[key], (
             f"megachunk diverged from the batch-at-a-time loop on {key}")
